@@ -1,0 +1,123 @@
+"""Command-line interface of the PyTorch/CUDA port (still frames).
+
+The port of ``bhr_tpu/cli.py`` for the single-frame mode: the same scene
+flags and defaults (reference render.py:4518-4695), plus ``--width`` /
+``--height``, with ``--device`` choosing ``cuda`` (the default) or
+``cpu``. The switches of modes the port does not have yet (--video,
+--interactive, --disk_model v2, --anti_alias lod_radius, --lens_flare,
+--tile_shards, --disk_texture auto, --coordinator_address) are parsed
+and refused with NotImplementedError, naming the ROADMAP item that
+ports them; those modes' own settings return with them.
+
+Usage:
+    python -m bhr_tpu_torch.cli --pov 6 0 0.5 --fov 90 -r fhd -o out/frame.png
+    python -m bhr_tpu_torch.cli -r sd --device cpu -o out/frame.png
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+from .config import DEVICES, RESOLUTIONS, SceneConfig
+from .constants import R_DISK_INNER_DEFAULT, R_DISK_OUTER_DEFAULT
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        description="Schwarzschild black-hole ray-tracing renderer "
+                    "(PyTorch/CUDA port)"
+    )
+    p.add_argument("--pov", type=float, nargs=3, default=[6.0, 0.0, 0.5],
+                   metavar=("X", "Y", "Z"), help="camera position")
+    p.add_argument("--fov", type=float, default=90.0,
+                   help="field of view in degrees (0-180)")
+    p.add_argument("--resolution", "-r", type=str, default="fhd",
+                   choices=sorted(RESOLUTIONS), help="resolution preset")
+    p.add_argument("--width", type=int, default=None,
+                   help="image width in pixels (with --height; overrides -r)")
+    p.add_argument("--height", type=int, default=None,
+                   help="image height in pixels (with --width)")
+    p.add_argument("--texture", "-t", type=str, default=None,
+                   help="skybox texture path (default: procedural)")
+    p.add_argument("--output", "-o", type=str, default="output/blackhole.png",
+                   help="output PNG path")
+    p.add_argument("--step_size", "-s", type=float, default=0.1,
+                   help="integration base step")
+    p.add_argument("--r_max", type=float, default=10.0, help="escape radius")
+    p.add_argument("--n_stars", type=int, default=6000,
+                   help="procedural skybox star count")
+    p.add_argument("--disk_texture", type=str, default=None,
+                   help="external disk texture (static single-frame only)")
+    p.add_argument("--disk_model", type=str, default="texture",
+                   choices=["texture", "v2"],
+                   help="disk shading model (v2 is not ported yet)")
+    p.add_argument("--disk_inner_radius", "--ar1", dest="disk_inner_radius",
+                   type=float, default=R_DISK_INNER_DEFAULT)
+    p.add_argument("--disk_outer_radius", "--ar2", dest="disk_outer_radius",
+                   type=float, default=R_DISK_OUTER_DEFAULT)
+    p.add_argument("--disk_tilt", type=float, default=0.0,
+                   help="disk tilt in degrees")
+    p.add_argument("--lens_flare", action="store_true")
+    p.add_argument("--anti_alias", type=str, default="disabled",
+                   choices=["disabled", "lod_radius"])
+    p.add_argument("--device", "-d", type=str, default="cuda",
+                   choices=list(DEVICES), help="torch device")
+    p.add_argument("--tile_shards", type=int, default=0,
+                   help="single-frame row sharding (not ported yet)")
+    p.add_argument("--video", action="store_true")
+    p.add_argument("--interactive", action="store_true")
+    p.add_argument("--disk_rotation_speed", type=float, default=0.1)
+    p.add_argument("--coordinator_address", type=str, default=None,
+                   help="multi-host rendering (not ported yet)")
+    p.add_argument("--seed", type=int, default=42)
+    return p
+
+
+def config_from_args(args: argparse.Namespace) -> SceneConfig:
+    return SceneConfig(
+        pov=tuple(args.pov),
+        fov=args.fov,
+        resolution=args.resolution,
+        width=args.width,
+        height=args.height,
+        texture=args.texture,
+        output=args.output,
+        step_size=args.step_size,
+        r_max=args.r_max,
+        n_stars=args.n_stars,
+        disk_texture=args.disk_texture,
+        disk_model=args.disk_model,
+        disk_inner_radius=args.disk_inner_radius,
+        disk_outer_radius=args.disk_outer_radius,
+        disk_tilt=args.disk_tilt,
+        lens_flare=args.lens_flare,
+        anti_alias=args.anti_alias,
+        device=args.device,
+        tile_shards=args.tile_shards,
+        video=args.video,
+        interactive=args.interactive,
+        disk_rotation_speed=args.disk_rotation_speed,
+        seed=args.seed,
+    ).validated()
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    if args.coordinator_address is not None:
+        raise NotImplementedError(
+            "--coordinator_address (multi-host) is not ported to "
+            "bhr_tpu_torch yet (ROADMAP.md Queue 1 item 15)")
+    config = config_from_args(args)
+
+    from .modes import render_image
+    from .utils.io import save_image
+
+    img = render_image(config)
+    save_image(img, config.output)
+    print(f"Saved: {config.output}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

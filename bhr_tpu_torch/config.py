@@ -1,0 +1,241 @@
+"""Scene configuration: one dataclass mirroring the reference CLI.
+
+The port of ``bhr_tpu/config.py``. The fields it shares and their
+validation rules are the same, so a scene means the same thing in both
+packages. It leaves out the settings of modes it does not have yet
+(video, AA strength, V2 knobs, deprecated flags), and differs in two
+ways:
+
+* ``device`` names a torch device, ``"cuda"`` (the default) or
+  ``"cpu"``, and :func:`torch_device` refuses ``"cuda"`` on a host
+  without a GPU instead of dropping to the CPU.
+* Features the port does not have yet raise ``NotImplementedError``
+  from :meth:`SceneConfig.validated`, naming the ROADMAP item that
+  ports them, rather than rendering something else.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+from .constants import (
+    R_DISK_INNER_DEFAULT,
+    R_DISK_OUTER_DEFAULT,
+    RS,
+)
+
+RESOLUTIONS = {
+    "4k": (3840, 2160),
+    "fhd": (1920, 1080),
+    "hd": (1280, 720),
+    "sd": (640, 360),
+}
+
+DEVICES = ("cuda", "cpu")
+
+
+@dataclass(frozen=True)
+class SceneConfig:
+    """Complete scene + run configuration (the reference's CLI surface)."""
+
+    # Camera
+    pov: Tuple[float, float, float] = (6.0, 0.0, 0.5)
+    fov: float = 90.0
+    resolution: str = "fhd"
+    width: Optional[int] = None  # explicit override of resolution preset
+    height: Optional[int] = None
+
+    # Integration
+    step_size: float = 0.1
+    r_max: float = 10.0
+
+    # Skybox
+    texture: Optional[str] = None
+    n_stars: int = 6000
+    skybox_seed: int = 42
+
+    # Disk
+    disk_model: str = "texture"  # "texture" (V1) | "v2" (not ported yet)
+    disk_texture: Optional[str] = None
+    disk_inner_radius: float = R_DISK_INNER_DEFAULT
+    disk_outer_radius: float = R_DISK_OUTER_DEFAULT
+    disk_tilt: float = 0.0
+    disk_rotation_speed: float = 0.1
+    seed: int = 42
+
+    # Post-FX / AA (flare and AA are refused until ported)
+    lens_flare: bool = False
+    anti_alias: str = "disabled"  # "disabled" | "lod_radius"
+
+    # Modes (video and interactive are refused until ported; their
+    # settings return with them)
+    video: bool = False
+    interactive: bool = False
+    orbit: bool = False
+    output: str = "output/blackhole.png"
+
+    # Device / parallelism
+    device: str = "cuda"  # "cuda" | "cpu"
+    tile_shards: int = 0  # > 1 is refused until ported
+
+    @property
+    def image_size(self) -> Tuple[int, int]:
+        """(width, height) in pixels."""
+        if self.width is not None and self.height is not None:
+            return (self.width, self.height)
+        return RESOLUTIONS[self.resolution]
+
+    def validated(self) -> "SceneConfig":
+        """Validate and normalize; raises ValueError on bad input and
+        NotImplementedError on a feature the port does not have yet."""
+        if not (0.0 < self.fov < 180.0):
+            raise ValueError(f"FOV must be in (0, 180), got {self.fov}")
+        pov_dist = _cam_distance(self.pov)
+        if not math.isfinite(pov_dist) or pov_dist <= RS:
+            raise ValueError(
+                f"camera |pov| must be finite and outside the event "
+                f"horizon r={RS}, got |{tuple(self.pov)}| = {pov_dist:.3g}"
+            )
+        if (self.width is None) != (self.height is None):
+            raise ValueError(
+                "width and height must be overridden together "
+                f"(got width={self.width}, height={self.height}); a lone "
+                "override would silently fall back to the resolution preset"
+            )
+        if self.width is not None and (self.width <= 0 or self.height <= 0):
+            raise ValueError(
+                f"image size must be positive, got {self.width}x{self.height}"
+            )
+        if self.disk_inner_radius >= self.disk_outer_radius:
+            raise ValueError(
+                f"disk_inner_radius ({self.disk_inner_radius}) must be less "
+                f"than disk_outer_radius ({self.disk_outer_radius})"
+            )
+        if self.step_size <= 0:
+            raise ValueError(f"step_size must be positive, got {self.step_size}")
+        if self.anti_alias not in ("disabled", "lod_radius"):
+            raise ValueError(f"unknown anti_alias mode: {self.anti_alias}")
+        if self.disk_model not in ("texture", "v2"):
+            raise ValueError(f"unknown disk_model: {self.disk_model}")
+        if self.disk_texture and (self.video or self.interactive):
+            raise ValueError(
+                "disk_texture only supports static single-frame rendering; "
+                "video/interactive modes use the lifecycle system"
+            )
+        if self.disk_texture and self.disk_model == "v2":
+            raise ValueError(
+                "disk_texture is a V1 (texture-model) input; the v2 disk "
+                "model shades by volume integration and takes no texture"
+            )
+        if self.tile_shards < 0:
+            raise ValueError(
+                f"tile_shards must be >= 0, got {self.tile_shards}")
+        if self.resolution not in RESOLUTIONS:
+            raise ValueError(f"unknown resolution preset: {self.resolution}")
+        if self.device not in DEVICES:
+            raise ValueError(
+                f"device must be one of {DEVICES}, got {self.device!r}")
+        for requested, feature, item in _UNPORTED:
+            if requested(self):
+                raise NotImplementedError(
+                    f"{feature} is not ported to bhr_tpu_torch yet "
+                    f"(ROADMAP.md {item}); use bhr_tpu for it"
+                )
+        return self
+
+
+# (predicate, feature, ROADMAP item that ports it). The still frame of a
+# texture-model scene is the only slice the port renders so far.
+_UNPORTED = (
+    (lambda c: c.video, "--video", "Queue 1 item 11"),
+    (lambda c: c.interactive, "--interactive", "Queue 1 item 13"),
+    (lambda c: c.disk_model == "v2", "--disk_model v2", "Queue 1 item 12"),
+    (lambda c: c.anti_alias != "disabled", "--anti_alias lod_radius",
+     "Queue 1 item 9 and Queue 2 item 2"),
+    (lambda c: c.lens_flare, "--lens_flare", "Queue 1 item 10"),
+    (lambda c: c.tile_shards > 1, "--tile_shards > 1",
+     "Queue 1 item 15 and Queue 2 item 4"),
+    (lambda c: c.disk_texture == "auto", "--disk_texture auto",
+     "Queue 1 item 14"),
+)
+
+
+def torch_device(name: str):
+    """The torch device for a ``SceneConfig.device`` name.
+
+    ``"cuda"`` on a host without a usable GPU raises: the port never
+    drops to the CPU behind the caller's back.
+    """
+    import torch
+
+    if name not in DEVICES:
+        raise ValueError(f"device must be one of {DEVICES}, got {name!r}")
+    if name == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device 'cuda' requested but torch.cuda.is_available() is "
+            "False; pass device='cpu' (--device cpu) to render on the CPU"
+        )
+    return torch.device(name)
+
+
+def _cam_distance(cam_pos) -> float:
+    """Euclidean camera distance |cam_pos| (host float)."""
+    return math.sqrt(sum(float(c) ** 2 for c in cam_pos))
+
+
+def escape_radius(r_max: float, cam_pos) -> float:
+    """Trace escape radius: ``max(r_max, 2 x camera distance)`` — the
+    reference's formula (render.py:3829, 3884).
+
+    With the default r_max=10 and disk_outer_radius=15, disk-plane
+    crossings beyond the escape radius are shaded as sky, as in the
+    reference; raising r_max is the supported way to render the far
+    annulus.
+    """
+    return max(float(r_max), 2.0 * _cam_distance(cam_pos))
+
+
+def scene_escape_radius(config: "SceneConfig") -> float:
+    """Escape radius for a whole scene or video, identical across engines.
+
+    Orbit videos place every frame's camera at distance
+    ``sqrt(|pov|**2 + pov_z**2)`` (the orbit keeps radius ``|pov|`` in
+    the xy-plane AND preserves z, camera.orbit_camera_position), so the
+    per-frame escape radius is one constant.
+    """
+    if config.orbit:
+        d = math.sqrt(
+            _cam_distance(config.pov) ** 2 + float(config.pov[2]) ** 2
+        )
+        return max(float(config.r_max), 2.0 * d)
+    return escape_radius(config.r_max, config.pov)
+
+
+def compute_disk_texture_resolution(
+    width: int,
+    height: int,
+    cam_pos: Tuple[float, float, float],
+    fov: float,
+    r_inner: float,
+    r_outer: float,
+) -> Tuple[int, int]:
+    """Camera-dependent polar texture size (n_phi, n_r).
+
+    ~1 phi sample per screen pixel of disk coverage, 0.5 radial samples;
+    floors of 256/128, rounded up to multiples of 16.
+    Parity: reference render.py:1128-1149.
+    """
+    cam_dist = math.sqrt(sum(c * c for c in cam_pos))
+    ang_radius = math.atan(r_outer / cam_dist)
+    ang_extent = 2.0 * ang_radius
+    screen_fraction = fov * math.pi / 180.0
+
+    n_phi = int(width * (ang_extent / screen_fraction))
+    n_r = int(height * (ang_radius / screen_fraction) * 0.5)
+    n_phi = max(256, n_phi)
+    n_r = max(128, n_r)
+    n_phi += (16 - n_phi % 16) % 16
+    n_r += (16 - n_r % 16) % 16
+    return n_phi, n_r

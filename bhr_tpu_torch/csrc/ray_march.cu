@@ -1,0 +1,264 @@
+// Ray-march kernel for NVIDIA Hopper (sm_90a): per-ray RK4 integration
+// of Schwarzschild null geodesics with disk-plane hit recording.
+//
+// Replaces bhr_tpu/ops/geodesic_pallas.py: build_ray_march_kernel, slim
+// hit-recording variant (with_differentials=False, record_hits=True) —
+// the trace of the default still frame. The plain PyTorch version it is
+// checked against is bhr_tpu_torch/ops/geodesic.py: trace_geodesics.
+//
+// What bounds it on this card: FP32 ALU work and warp divergence, not
+// memory. Each RK4 step is ~150 FP32 operations (4 square roots, 5
+// divides) on state held in registers; a ray reads nothing and writes
+// its result once at the end, about 210 bytes (hits 4x12 floats, escape
+// direction, flags, count) — about 0.4 GB for a 1920x1080 frame. Rays
+// take from a few hundred steps (escaping sky) to the iteration cap
+// (photon-ring orbits), so a warp runs as long as its slowest ray.
+//
+// Design:
+//  * One thread per pixel; each thread loops until its ray is captured,
+//    escapes or reaches max_iter. The TPU kernel's tile-wide early exit,
+//    unrolled exit checks, float mask carries and two-phase fat/slim loop
+//    only shaped the TPU's lock-step vector loop and do not change
+//    results, so none of them is here.
+//  * Blocks are 8 x 16 pixels, so each warp is an 8 x 4 patch of the
+//    image rather than a 32-pixel row segment. Long-running rays cluster
+//    in a thin annulus around the photon ring; a compact patch keeps a
+//    warp's rays similar in length, which limits divergence.
+//  * The K = 4 hit slots x 5 features stay in registers (K is a
+//    compile-time constant and every slot index is unrolled).
+//  * Outputs are written straight into TraceResult's layout (no padding,
+//    no crop): captured/escaped (N,) bytes, escape_dir (N,3), hit_count
+//    (N,) int32, hits (K,12,N) with features 5..11 zero. The wrapper
+//    allocates them; the kernel allocates nothing.
+//  * Arithmetic follows the plain version's operation order, with the
+//    correctly rounded sqrtf and '/' (no rsqrtf), and is built with
+//    -fmad=false and without --use_fast_math, so the kernel and the plain
+//    version agree bit for bit. Every scalar that Python derives in
+//    double (squares, 40*r_escape, tan(tilt)) arrives precomputed.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kSlots = 4;        // MAX_DISK_CROSSINGS
+constexpr int kFeatures = 12;    // HIT_FEATURES
+constexpr int kBlockX = 8;
+constexpr int kBlockY = 16;
+
+// Float parameter layout (bhr_tpu_torch/ops/geodesic_cuda.py _FPARAMS).
+enum FParam {
+  kHBase = 0, kRs, kRFloor, kRs2, kREscape2, kMaxAffine, kTanT, kRIn2,
+  kROut2, kNumFParams
+};
+// Int parameter layout (_IPARAMS).
+enum IParam { kWidth = 0, kHeight, kRow0, kMaxIter, kNumIParams };
+
+struct Params {
+  float f[kNumFParams];
+  int i[kNumIParams];
+};
+
+// Constants written as double literals rounded to float: the plain
+// version's Python scalars are doubles that torch rounds the same way.
+#define F32(x) static_cast<float>(x)
+
+__device__ __forceinline__ float accel_factor(float x, float y, float z,
+                                              float neg15_l2) {
+  const float r2 = x * x + y * y + z * z;
+  const float r5 = r2 * r2 * sqrtf(r2);
+  return neg15_l2 / r5;
+}
+
+__global__ void __launch_bounds__(kBlockX * kBlockY)
+ray_march_slim(Params p, const float* __restrict__ cam,
+               uint8_t* __restrict__ captured, uint8_t* __restrict__ escaped,
+               float* __restrict__ escape_dir, int32_t* __restrict__ hit_count,
+               float* __restrict__ hits) {
+  const int width = p.i[kWidth];
+  const int rows = p.i[kHeight];
+  const int x = blockIdx.x * kBlockX + threadIdx.x;
+  const int y = blockIdx.y * kBlockY + threadIdx.y;
+  if (x >= width || y >= rows) return;
+  const int64_t n = static_cast<int64_t>(y) * width + x;
+  const int64_t n_rays = static_cast<int64_t>(rows) * width;
+
+  // Primary ray (bhr_tpu_torch.ops.geodesic.primary_rays_from_params).
+  const float cx = cam[0], cy = cam[1], cz = cam[2];
+  const float rx = cam[3], ry = cam[4], rz = cam[5];
+  const float ux = cam[6], uy = cam[7], uz = cam[8];
+  const float fx = cam[9], fy = cam[10], fz = cam[11];
+  const float pw = cam[12], ph = cam[13];
+  const float half_w = pw * static_cast<float>(width) * F32(0.5);
+  const float half_h = ph * static_cast<float>(rows) * F32(0.5);
+  const float tlx = cx + fx - rx * half_w + ux * half_h;
+  const float tly = cy + fy - ry * half_w + uy * half_h;
+  const float tlz = cz + fz - rz * half_w + uz * half_h;
+  const float a = (static_cast<float>(x) + F32(0.5)) * pw;
+  const float b = (static_cast<float>(y + p.i[kRow0]) + F32(0.5)) * ph;
+  const float dx = tlx + a * rx - b * ux - cx;
+  const float dy = tly + a * ry - b * uy - cy;
+  const float dz = tlz + a * rz - b * uz - cz;
+  const float dn = sqrtf(dx * dx + dy * dy + dz * dz);
+
+  float px = cx, py = cy, pz = cz;
+  float vx = dx / dn, vy = dy / dn, vz = dz / dn;
+  // L = dir x pos, conserved along the ray.
+  const float lx = vy * pz - vz * py;
+  const float ly = vz * px - vx * pz;
+  const float lz = vx * py - vy * px;
+  const float neg15_l2 = F32(-1.5) * (lx * lx + ly * ly + lz * lz);
+
+  const float h_base = p.f[kHBase], rs = p.f[kRs], r_floor = p.f[kRFloor];
+  const float rs2 = p.f[kRs2], r_escape2 = p.f[kREscape2];
+  const float max_affine = p.f[kMaxAffine], tan_t = p.f[kTanT];
+  const float r_in2 = p.f[kRIn2], r_out2 = p.f[kROut2];
+  const int max_iter = p.i[kMaxIter];
+
+  float slot[kSlots][5];
+#pragma unroll
+  for (int k = 0; k < kSlots; ++k) {
+#pragma unroll
+    for (int f = 0; f < 5; ++f) slot[k][f] = 0.0f;
+  }
+  int count = 0;
+  bool is_captured = false, is_escaped = false;
+  float ex = 0.0f, ey = 0.0f, ez = 0.0f;
+  float affine = 0.0f;
+
+  for (int it = 0; it < max_iter; ++it) {
+    // r-adaptive step: h_base * clamp(min(sqrt(r/rs), 10) /
+    // (1 + 2 (rs/r)^3), 0.2, 10), r clamped at rs + 1e-3.
+    const float r = sqrtf(px * px + py * py + pz * pz);
+    const float r_safe = fmaxf(r, r_floor);
+    const float far = fminf(sqrtf(r_safe / rs), F32(10.0));
+    const float q = rs / r_safe;
+    const float near = F32(1.0) / (F32(1.0) + F32(2.0) * (q * q * q));
+    const float h = h_base * fminf(fmaxf(far * near, F32(0.2)), F32(10.0));
+
+    // RK4 of (pos, dir) with a = -1.5 L^2 pos / r^5.
+    const float f1 = accel_factor(px, py, pz, neg15_l2);
+    const float k1px = h * vx, k1py = h * vy, k1pz = h * vz;
+    const float k1dx = h * (f1 * px), k1dy = h * (f1 * py), k1dz = h * (f1 * pz);
+    const float k2px = h * (vx + F32(0.5) * k1dx);
+    const float k2py = h * (vy + F32(0.5) * k1dy);
+    const float k2pz = h * (vz + F32(0.5) * k1dz);
+    const float s2x = px + F32(0.5) * k1px, s2y = py + F32(0.5) * k1py,
+                s2z = pz + F32(0.5) * k1pz;
+    const float f2 = accel_factor(s2x, s2y, s2z, neg15_l2);
+    const float k2dx = h * (f2 * s2x), k2dy = h * (f2 * s2y), k2dz = h * (f2 * s2z);
+    const float k3px = h * (vx + F32(0.5) * k2dx);
+    const float k3py = h * (vy + F32(0.5) * k2dy);
+    const float k3pz = h * (vz + F32(0.5) * k2dz);
+    const float s3x = px + F32(0.5) * k2px, s3y = py + F32(0.5) * k2py,
+                s3z = pz + F32(0.5) * k2pz;
+    const float f3 = accel_factor(s3x, s3y, s3z, neg15_l2);
+    const float k3dx = h * (f3 * s3x), k3dy = h * (f3 * s3y), k3dz = h * (f3 * s3z);
+    const float k4px = h * (vx + k3dx), k4py = h * (vy + k3dy), k4pz = h * (vz + k3dz);
+    const float s4x = px + k3px, s4y = py + k3py, s4z = pz + k3pz;
+    const float f4 = accel_factor(s4x, s4y, s4z, neg15_l2);
+    const float k4dx = h * (f4 * s4x), k4dy = h * (f4 * s4y), k4dz = h * (f4 * s4z);
+
+    const float six = F32(6.0), two = F32(2.0);
+    const float npx = px + (k1px + two * k2px + two * k3px + k4px) / six;
+    const float npy = py + (k1py + two * k2py + two * k3py + k4py) / six;
+    const float npz = pz + (k1pz + two * k2pz + two * k3pz + k4pz) / six;
+    const float nvx = vx + (k1dx + two * k2dx + two * k3dx + k4dx) / six;
+    const float nvy = vy + (k1dy + two * k2dy + two * k3dy + k4dy) / six;
+    const float nvz = vz + (k1dz + two * k2dz + two * k3dz + k4dz) / six;
+
+    // r^2-space termination tests.
+    const float nr2 = npx * npx + npy * npy + npz * npz;
+    const float affine_new = affine + h;
+    if (nr2 < rs2) {
+      is_captured = true;
+      break;
+    }
+    if (nr2 > r_escape2 || affine_new > max_affine) {
+      is_escaped = true;
+      const float en = fmaxf(sqrtf(nvx * nvx + nvy * nvy + nvz * nvz),
+                             F32(1e-9));
+      ex = nvx / en;
+      ey = nvy / en;
+      ez = nvz / en;
+      break;
+    }
+
+    // Crossing of the tilted plane z = y tan(tilt) on the surviving
+    // segment, lerped within the step; recorded inside the annulus.
+    const float f_old = pz - py * tan_t;
+    const float f_new = npz - npy * tan_t;
+    if (f_old * f_new < 0.0f) {
+      const float t_frac = f_old / (f_old - f_new + F32(1e-8));
+      const float hx = px + t_frac * (npx - px);
+      const float hy = py + t_frac * (npy - py);
+      const float hr2 = hx * hx + hy * hy;
+      if (hr2 >= r_in2 && hr2 <= r_out2 && count < kSlots) {
+#pragma unroll
+        for (int k = 0; k < kSlots; ++k) {
+          if (k == count) {
+            slot[k][0] = hx;
+            slot[k][1] = hy;
+            slot[k][2] = vx;  // pre-step direction
+            slot[k][3] = vy;
+            slot[k][4] = vz;
+          }
+        }
+        ++count;
+      }
+    }
+
+    px = npx; py = npy; pz = npz;
+    vx = nvx; vy = nvy; vz = nvz;
+    affine = affine_new;
+  }
+
+  captured[n] = is_captured ? 1 : 0;
+  escaped[n] = is_escaped ? 1 : 0;
+  escape_dir[3 * n + 0] = ex;
+  escape_dir[3 * n + 1] = ey;
+  escape_dir[3 * n + 2] = ez;
+  hit_count[n] = count;
+#pragma unroll
+  for (int k = 0; k < kSlots; ++k) {
+    float* out = hits + static_cast<int64_t>(k) * kFeatures * n_rays + n;
+#pragma unroll
+    for (int f = 0; f < 5; ++f) out[f * n_rays] = slot[k][f];
+#pragma unroll
+    for (int f = 5; f < kFeatures; ++f) out[f * n_rays] = 0.0f;
+  }
+}
+
+}  // namespace
+
+// Plain C entry point (loaded with ctypes). Launches on `stream` and
+// returns the cudaError_t of the launch; does not synchronize.
+extern "C" int bhr_ray_march_slim(const float* fparams, const int* iparams,
+                                  const float* cam, void* captured,
+                                  void* escaped, void* escape_dir,
+                                  void* hit_count, void* hits, void* stream) {
+  Params p;
+  for (int j = 0; j < kNumFParams; ++j) p.f[j] = fparams[j];
+  for (int j = 0; j < kNumIParams; ++j) p.i[j] = iparams[j];
+  if (p.i[kWidth] <= 0 || p.i[kHeight] <= 0) return cudaErrorInvalidValue;
+  const dim3 block(kBlockX, kBlockY);
+  const dim3 grid((p.i[kWidth] + kBlockX - 1) / kBlockX,
+                  (p.i[kHeight] + kBlockY - 1) / kBlockY);
+  ray_march_slim<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      p, cam, static_cast<uint8_t*>(captured), static_cast<uint8_t*>(escaped),
+      static_cast<float*>(escape_dir), static_cast<int32_t*>(hit_count),
+      static_cast<float*>(hits));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Constants the wrapper checks against its own, so the two layouts
+// cannot drift apart silently.
+extern "C" int bhr_ray_march_layout(int which) {
+  switch (which) {
+    case 0: return kNumFParams;
+    case 1: return kNumIParams;
+    case 2: return kSlots;
+    case 3: return kFeatures;
+    default: return -1;
+  }
+}

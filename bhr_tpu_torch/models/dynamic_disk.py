@@ -1,0 +1,199 @@
+"""Dynamic disk: background noise + entity lifecycle -> per-frame texture.
+
+The port of ``bhr_tpu/models/dynamic_disk.py`` (reference
+``_init_lifecycle_system`` / ``_advance_lifecycle_frame``, render.py:
+4079-4153): a time-evolving noise background (comp slices 0-4, 11, 12)
+plus the entity lifecycle layer (slices 5-10), composed through the
+13-component contract with periodically recomputed normalization stats.
+Factory bookkeeping and parameter packing stay on the host (NumPy); the
+noise, entity evaluation, stats and compose run on the torch device.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from ..constants import DISK_COLOR_TEMPERATURE
+from ..ops.background import generate_background_components
+from ..ops.stats import approx_quantile, approx_quantile_rows
+from ..utils.io import compute_edge_alpha
+from .disk_texture import (
+    compose_from_components,
+    density_from_comp,
+    temp_struct_from_comp,
+)
+from .lifecycle import (
+    MAX_HOTSPOTS,
+    MAX_RT_SPIKES,
+    accumulate_entity_layer,
+    make_factories,
+    pack_filaments,
+    pack_timer_entities,
+    radial_omega_rows,
+)
+
+
+def assemble_comp(bg: torch.Tensor, staging: torch.Tensor) -> torch.Tensor:
+    """The 13-component field from background + entity planes:
+    [tb, sp, sp_t, turb, turb_t, fil_d, fil_t, rt_d, rt_t, hs_d, hs_t,
+    az, dm] — the 6 entity staging planes are comp slices 5-10."""
+    return torch.cat([bg[0:5], staging, bg[5:7]], dim=0)
+
+
+def _recompute_stats(comp, edge, enable_rt: bool = True):
+    """Normalization stats from the live comp field, with temp-base
+    floors so sparse entity rows don't over-clamp the background
+    (reference recompute_interactive_stats, render.py:3655-3712).
+    Quantiles are the histogram approximation of ops/stats.py."""
+    density = density_from_comp(comp, edge, enable_rt)
+    density_p98 = torch.clamp(approx_quantile(density, 0.98), min=0.01)
+
+    temp_struct = temp_struct_from_comp(comp)
+    pos = temp_struct > 0
+    struct_scale = torch.where(
+        torch.any(pos),
+        approx_quantile(temp_struct, 0.95, mask=pos),
+        1.0,
+    )
+    struct_scale = torch.clamp(struct_scale, min=0.01)
+
+    ts_scaled = torch.clamp(temp_struct / (struct_scale + 1e-6) * 0.8, 0.0, 1.2)
+    struct_max = torch.amax(ts_scaled, dim=1)
+    struct_p70 = approx_quantile_rows(ts_scaled, 0.7, lo=0.0, hi=1.2)
+
+    tb_max = torch.amax(comp[0], dim=1)
+    struct_max = torch.maximum(struct_max, tb_max)
+    struct_p70 = torch.maximum(struct_p70, tb_max * 0.8)
+    return density_p98, struct_scale, torch.stack([struct_max, struct_p70], dim=1)
+
+
+def adaptive_generation_scale(n_r: int, n_phi: int) -> int:
+    """Low-res generation factor by texture size: 4 for 4K-class
+    textures (n_phi >= 4096), else 2, from the reference's choice set
+    {1, 2, 4} (render.py:78-87); falls back while not divisible."""
+    scale = 4 if n_phi >= 4096 else 2
+    while scale > 1 and (n_r % scale or n_phi % scale):
+        scale //= 2
+    return scale
+
+
+class DynamicDiskSystem:
+    """Per-frame dynamic texture generator (lifecycle + background).
+
+    Usage:
+        dyn = DynamicDiskSystem(n_r, n_phi, r_inner, r_outer, seed=42,
+                                device="cuda")
+        tex = dyn.advance(t=0.0, dt=0.0, recompute_stats=True)
+    """
+
+    def __init__(
+        self,
+        n_r: int,
+        n_phi: int,
+        r_inner: float,
+        r_outer: float,
+        seed: int = 42,
+        enable_rt: bool = True,
+        color_temp: Optional[float] = None,
+        generation_scale: Optional[int] = None,
+        device="cpu",
+    ):
+        self.n_r = n_r
+        self.n_phi = n_phi
+        if generation_scale is None:
+            self.generation_scale = adaptive_generation_scale(n_r, n_phi)
+        else:
+            self.generation_scale = (
+                generation_scale if (n_r % generation_scale == 0 and
+                                     n_phi % generation_scale == 0) else 1
+            )
+        self.r_inner = float(r_inner)
+        self.r_outer = float(r_outer)
+        self.enable_rt = enable_rt
+        self.color_temp = float(
+            DISK_COLOR_TEMPERATURE if color_temp is None else color_temp
+        )
+        self.device = torch.device(device)
+
+        rng = np.random.default_rng(seed)
+        self.az_freq = float(rng.integers(2, 5))
+        self.az_shear = float(rng.uniform(2.0, 4.0))
+
+        self.factories: Dict = make_factories(
+            n_r, r_inner, r_outer, seed, enable_rt=enable_rt
+        )
+        for f in self.factories.values():
+            f.seed_initial(now=0.0)
+
+        r_norm, omega_np = radial_omega_rows(n_r, r_inner, r_outer)
+        # Initial permissive stats (reference init_background_layer,
+        # render.py:3532-3542) — replaced by the first recompute.
+        tb_init = np.clip(1.0 - r_norm, 0.0, 1.0) ** 1.3 * 0.25
+        row_stats = np.stack(
+            [np.maximum(tb_init, 0.25), np.maximum(tb_init * 0.8, 0.10)],
+            axis=1,
+        ).astype(np.float32)
+        self.set_field_state(omega_np, compute_edge_alpha(n_r), 0.5, 0.5,
+                             row_stats)
+        self.comp: Optional[torch.Tensor] = None
+
+    def set_field_state(self, omega_rows, edge, density_p98, struct_scale,
+                        row_stats) -> None:
+        """Place the per-row advection omegas, edge alpha and the
+        normalization stats on the device (float32)."""
+        def dev(a):
+            return torch.tensor(np.asarray(a, np.float32), device=self.device)
+
+        self.omega_rows = dev(omega_rows)
+        self.edge = dev(edge)
+        self.density_p98 = dev(density_p98)
+        self.struct_scale = dev(struct_scale)
+        self.row_stats = dev(row_stats)
+
+    def _pack(self, now: float):
+        """Packed (filament, hotspot, rt_spike) parameter rows at ``now``."""
+        return (
+            pack_filaments(self.factories["filament"], now),
+            pack_timer_entities(self.factories["hotspot"], now, MAX_HOTSPOTS),
+            pack_timer_entities(self.factories["rt_spike"], now, MAX_RT_SPIKES),
+        )
+
+    def _comp_field(self, fil, hs, rt, t: float) -> torch.Tensor:
+        """The (13, n_r, n_phi) component field at time ``t``."""
+        def dev(a):
+            return torch.as_tensor(a, device=self.device)
+
+        bg = generate_background_components(
+            self.n_r, self.n_phi, self.az_freq, self.az_shear,
+            self.r_inner, self.r_outer, t,
+            generation_scale=self.generation_scale, device=self.device,
+        )
+        staging = accumulate_entity_layer(
+            dev(fil), dev(hs), dev(rt), self.omega_rows, self.n_r, self.n_phi,
+            phi_scale=self.generation_scale,
+        )
+        return assemble_comp(bg, staging)
+
+    def advance(self, t: float, dt: float,
+                recompute_stats: bool = False) -> torch.Tensor:
+        """Tick factories, regenerate the comp field, compose the texture.
+
+        Returns the (n_r, n_phi, 4) RGBA texture for time ``t`` on the
+        system's device.
+        """
+        for f in self.factories.values():
+            f.tick(now=t, dt=dt)
+        self.comp = self._comp_field(*self._pack(t), t)
+        if recompute_stats:
+            self.density_p98, self.struct_scale, self.row_stats = (
+                _recompute_stats(self.comp, self.edge, self.enable_rt)
+            )
+        return compose_from_components(
+            self.comp, self.edge, self.density_p98, self.struct_scale,
+            self.row_stats, self.enable_rt,
+            torch.tensor(self.color_temp, dtype=torch.float32,
+                         device=self.device),
+        )

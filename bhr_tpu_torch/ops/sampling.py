@@ -1,0 +1,132 @@
+"""Gather-based texture sampling (equirect skybox, polar disk) + mips.
+
+The port of the f32 samplers the renderer uses in ``bhr_tpu/ops/
+sampling.py`` (``sample_skybox_quad`` and ``sample_disk_quad`` off the
+TPU, where textures stay f32). The TPU storage layouts (quad packing,
+gamma-u8 words, the mip atlas, gather bands) exist for TPU gather cost
+and are not ported: a plain 4-tap bilinear gather gives the same values,
+with the quad path's clamp and wrap rule —
+
+  * texel addressing is floor-based with no half-texel offset;
+  * u (azimuth) wraps; v (radius / polar angle) clamps, and above the
+    top row the blend weight fv is 0, so row 0 is sampled alone;
+  * the disk texture is polar, rows = radius in [r_inner, r_outer],
+    columns = phi in [0, 2pi), with a Keplerian rotation offset
+    phi' = phi + t_offset * omega(r).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .fastmath import fast_arccos, fast_atan2
+
+TWO_PI = 2.0 * math.pi
+
+
+def _bilinear_gather(tex: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Bilinear lookup of ``tex`` (H, W, C) at texel coords (v=row, u=col).
+
+    u wraps modulo W; v clamps to [0, H-1] with fv forced to 0 above
+    the top row (``bhr_tpu.ops.sampling._bilinear_quad_gather``).
+    Returns (*batch, C).
+    """
+    tex_h, tex_w = tex.shape[0], tex.shape[1]
+    u0 = torch.floor(u)
+    v0 = torch.floor(v)
+    fu = (u - u0)[..., None]
+    fv = v - v0
+    u0 = u0.to(torch.int64)
+    v0 = v0.to(torch.int64)
+    fv = torch.where(v0 < 0, 0.0, torch.clamp(fv, 0.0, 1.0))[..., None]
+
+    u0w = torch.remainder(u0, tex_w)
+    u1w = torch.remainder(u0w + 1, tex_w)
+    v0h = torch.clamp(v0, 0, tex_h - 1)
+    v1h = torch.clamp(v0h + 1, max=tex_h - 1)
+
+    flat = tex.reshape(tex_h * tex_w, -1)
+    c00 = flat[v0h * tex_w + u0w]
+    c10 = flat[v0h * tex_w + u1w]
+    c01 = flat[v1h * tex_w + u0w]
+    c11 = flat[v1h * tex_w + u1w]
+    return (
+        c00 * (1 - fu) * (1 - fv)
+        + c10 * fu * (1 - fv)
+        + c01 * (1 - fu) * fv
+        + c11 * fu * fv
+    )
+
+
+def sample_skybox(texture: torch.Tensor, directions: torch.Tensor) -> torch.Tensor:
+    """Equirect skybox (H, W, 3) sampled along unit ``directions``
+    (*B, 3) with the fast polynomial trig. Returns (*B, 3)."""
+    tex_h, tex_w = texture.shape[0], texture.shape[1]
+    x, y, z = directions[..., 0], directions[..., 1], directions[..., 2]
+    theta = fast_arccos(z)
+    phi = fast_atan2(y, x)
+    phi = torch.where(phi < 0, phi + TWO_PI, phi)
+    u = phi / TWO_PI * tex_w
+    v = theta / math.pi * tex_h
+    return _bilinear_gather(texture, u, v)
+
+
+def _disk_polar(hit_x: torch.Tensor, hit_y: torch.Tensor, t_offset: float):
+    """(r, Keplerian-advected phi in [0, 2pi)) for a disk-plane hit."""
+    r = torch.sqrt(hit_x * hit_x + hit_y * hit_y)
+    phi = fast_atan2(hit_y, hit_x)
+    r_safe = torch.clamp(r, min=1e-3)
+    omega = torch.sqrt(0.5 / (r_safe * r_safe * r_safe + 1e-6))
+    phi = torch.remainder(phi + t_offset * omega, TWO_PI)
+    return r, phi
+
+
+def _disk_uv(hit_x, hit_y, r_inner: float, r_outer: float, t_offset: float,
+             tex_w: int, tex_h: int):
+    """Polar texture coordinates for a disk-plane hit, with Keplerian spin."""
+    r, phi = _disk_polar(hit_x, hit_y, t_offset)
+    u = phi / TWO_PI * tex_w
+    v = (r - r_inner) / (r_outer - r_inner) * tex_h
+    return u, v
+
+
+def sample_disk(
+    disk_tex: torch.Tensor,
+    hit_x: torch.Tensor,
+    hit_y: torch.Tensor,
+    r_inner: float,
+    r_outer: float,
+    t_offset: float = 0.0,
+) -> torch.Tensor:
+    """Bilinear RGBA sample of the (n_r, n_phi, 4) polar disk texture."""
+    u, v = _disk_uv(hit_x, hit_y, r_inner, r_outer, t_offset,
+                    disk_tex.shape[1], disk_tex.shape[0])
+    return _bilinear_gather(disk_tex, u, v)
+
+
+def build_mipmaps(base: torch.Tensor, levels: int = 4) -> torch.Tensor:
+    """2x2 box-filter mip pyramid packed into one padded (L, H, W, C) array.
+
+    Level l occupies the top-left (H >> l, W >> l) corner; remaining texels
+    are zero (reference render.py:1113-1125, 2239-2251).
+    """
+    h, w = base.shape[0], base.shape[1]
+    mips = [base]
+    cur = base
+    for _ in range(levels):
+        ch, cw = cur.shape[0], cur.shape[1]
+        if ch < 2 or cw < 2:
+            break
+        # Drop a trailing odd row/column before halving (external
+        # --disk_texture images can have any dimensions).
+        cur = cur[: ch - ch % 2, : cw - cw % 2]
+        cur = (
+            cur[0::2, 0::2] + cur[1::2, 0::2] + cur[0::2, 1::2] + cur[1::2, 1::2]
+        ) * 0.25
+        mips.append(cur)
+    out = base.new_zeros((len(mips), h, w) + tuple(base.shape[2:]))
+    for lvl, m in enumerate(mips):
+        out[lvl, : m.shape[0], : m.shape[1]] = m
+    return out

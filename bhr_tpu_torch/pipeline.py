@@ -1,0 +1,221 @@
+"""Per-frame render pipeline: trace -> deferred shade -> bloom and clamp.
+
+The port of ``bhr_tpu/pipeline.py`` for the still frame of a texture
+disk. The trace records up to K disk crossings per ray (on a CUDA device
+through the hand-written ray-march kernel, on the CPU through its plain
+version); shading then samples the disk texture at every recorded hit,
+applies the relativistic g-factor, composites the K slots front to back,
+and samples the skybox for escaped rays; bloom and a clamp finish the
+frame. PyTorch runs eagerly, so the ``Renderer`` holds the device
+assets (skybox, disk mip pyramid) and calls each stage in turn.
+
+Not ported yet (each raises, see ROADMAP.md): ray-differential AA with
+mip-LOD sampling, lens flare, the V2 volume disk. The TPU's ghost-slot
+crop window is left out on purpose: it only cut TPU gather counts and is
+exact by construction, so the masked pass over all slots gives the same
+image.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from .camera import Camera, build_camera
+from .config import SceneConfig, escape_radius, torch_device
+from .constants import DISK_ALPHA_GAIN, DISK_COLOR_TEMPERATURE, MAX_DISK_CROSSINGS
+from .ops import geodesic
+from .ops.bloom import apply_bloom
+from .ops.geodesic_cuda import camera_params, trace_geodesics_cuda
+from .ops.sampling import build_mipmaps, sample_disk, sample_skybox
+from .ops.shading import apply_g_factor, pow_const
+
+
+def shade_frame(
+    trace: geodesic.TraceResult,
+    skybox: torch.Tensor,
+    disk_tex: Optional[torch.Tensor],
+    cam_pos: torch.Tensor,
+    *,
+    r_inner: float,
+    r_outer: float,
+    tilt_deg: float,
+    t_offset: float,
+    color_temp: float = DISK_COLOR_TEMPERATURE,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Deferred shading over recorded hits.
+
+    Each hit slot k samples the (n_r, n_phi, 4) disk texture, shades
+    it, and composites front to back where k < hit_count. Slot 0 always
+    runs; a slot k >= 1 runs only when some ray recorded k + 1 hits
+    (``bhr_tpu`` skips it the same way, and running it would round
+    alpha through 1 - (1 - alpha)). Escaped rays sample the skybox.
+
+    Returns (bg_rgb, disk_rgb, alpha_total), each flattened over the N
+    pixels, front-to-back compositing as the reference's in-loop
+    accumulation (render.py:2992-3018).
+    """
+    k_slots = trace.hits.shape[0]
+    n = trace.hits.shape[2]
+    dev = trace.hits.device
+    tilt_rad = float(np.deg2rad(tilt_deg))
+    tan_t = float(np.tan(tilt_rad))
+
+    accum = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    alpha_total = torch.zeros((n,), dtype=torch.float32, device=dev)
+
+    if disk_tex is not None:
+        max_hits = int(trace.hit_count.max()) if n else 0
+        for k in range(k_slots):
+            if k > 0 and k >= max_hits:
+                break
+            feat = trace.hits[k]
+            valid = k < trace.hit_count
+            hit_x, hit_y = feat[0], feat[1]
+            ray_dir = feat[2:5].T
+            rgba = sample_disk(disk_tex, hit_x, hit_y, r_inner, r_outer, t_offset)
+
+            hit_r = torch.sqrt(hit_x * hit_x + hit_y * hit_y)
+            hit_z = hit_y * tan_t
+            hit_pos = torch.stack([hit_x, hit_y, hit_z], dim=-1)
+            shaded = apply_g_factor(
+                rgba[:, :3], hit_pos, hit_r, -ray_dir, cam_pos,
+                r_inner, r_outer, tilt_rad, color_temp,
+            )
+            base_alpha = torch.clamp(rgba[:, 3], max=0.999)
+            disk_alpha = 1.0 - pow_const(1.0 - base_alpha, DISK_ALPHA_GAIN)
+            disk_alpha = torch.where(valid, disk_alpha, 0.0)
+
+            front = 1.0 - alpha_total
+            accum = accum + shaded * (disk_alpha * front)[:, None]
+            alpha_total = 1.0 - front * (1.0 - disk_alpha)
+
+    bg = torch.where(trace.escaped[:, None],
+                     sample_skybox(skybox, trace.escape_dir), 0.0)
+    bg = bg * (1.0 - alpha_total)[:, None]
+    disk_rgb = torch.clamp(accum, 0.0, 1.0)
+    return bg, disk_rgb, alpha_total
+
+
+class Renderer:
+    """Holds the device assets and config; renders frames stage by stage.
+
+    Usage:
+        renderer = Renderer(config, skybox, disk_tex)
+        img = renderer.render(cam_pos, fov)          # (H, W, 3) numpy
+        renderer.update_disk_texture(new_tex)        # dynamic textures
+
+    ``device`` defaults to ``config.device``; "cuda" without a GPU
+    raises. On CUDA the trace goes through the ray-march kernel, on the
+    CPU through its plain version.
+    """
+
+    def __init__(
+        self,
+        config: SceneConfig,
+        skybox: np.ndarray,
+        disk_tex,
+        mip_levels: int = 4,
+        device=None,
+    ):
+        self.config = config
+        self.device = torch_device(config.device) if device is None else torch.device(device)
+        self.width, self.height = config.image_size
+        self.skybox = torch.as_tensor(np.asarray(skybox, np.float32),
+                                      device=self.device)
+        self.mip_levels = mip_levels
+        self.num_mip_levels = 1
+        self.disk_mips: Optional[torch.Tensor] = None
+        if disk_tex is not None:
+            self.update_disk_texture(disk_tex)
+
+    # -- disk texture management ------------------------------------------
+
+    def update_disk_texture(self, tex) -> None:
+        """Upload a new (n_r, n_phi, 4) texture and rebuild the mip pyramid."""
+        tex = torch.as_tensor(tex, dtype=torch.float32, device=self.device)
+        self.disk_mips = build_mipmaps(tex, levels=self.mip_levels)
+        self.num_mip_levels = int(self.disk_mips.shape[0])
+
+    @property
+    def disk_texture(self) -> Optional[torch.Tensor]:
+        return None if self.disk_mips is None else self.disk_mips[0]
+
+    # -- stages ------------------------------------------------------------
+
+    def camera(self, cam_pos, fov: float) -> Camera:
+        return build_camera(cam_pos, fov, self.width, self.height)
+
+    def trace(self, camera: Camera, r_escape: float) -> geodesic.TraceResult:
+        """Trace every pixel of ``camera``: the ray-march kernel on CUDA.
+
+        ``r_escape`` is a runtime argument of the kernel, so no value of
+        it costs a rebuild (``escape_radius(r_max, cam_pos)`` per frame).
+        """
+        cfg = self.config
+        cam = torch.as_tensor(camera_params(camera), device=self.device)
+        return trace_geodesics_cuda(
+            cam, width=self.width, height=self.height,
+            h_base=float(cfg.step_size),
+            r_escape=float(r_escape),
+            tilt_deg=float(cfg.disk_tilt),
+            r_inner=float(cfg.disk_inner_radius),
+            r_outer=float(cfg.disk_outer_radius),
+            max_crossings=MAX_DISK_CROSSINGS,
+        )
+
+    def shade(self, trace: geodesic.TraceResult, camera: Camera,
+              frame: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Deferred shade -> (bg, disk) layers, each (N, 3)."""
+        cfg = self.config
+        bg, disk_rgb, _ = shade_frame(
+            trace, self.skybox, self.disk_texture,
+            torch.as_tensor(camera.pos, device=self.device),
+            r_inner=float(cfg.disk_inner_radius),
+            r_outer=float(cfg.disk_outer_radius),
+            tilt_deg=float(cfg.disk_tilt),
+            t_offset=float(np.float32(frame * cfg.disk_rotation_speed)),
+        )
+        return bg, disk_rgb
+
+    def post(self, bg: torch.Tensor, disk_rgb: torch.Tensor,
+             use_bloom: bool = True):
+        """Bloom + clamp -> (final, bg, disk) images, each (H, W, 3)."""
+        shape = (self.height, self.width, 3)
+        bg_img = bg.reshape(shape)
+        disk_img = disk_rgb.reshape(shape)
+        if use_bloom:
+            # The reference's PNG path composites the raw blur field
+            # (render.py:3916-3918); see ops/bloom.py.
+            blur = apply_bloom(disk_img, width_ref=self.width)
+            final = torch.clamp(bg_img + disk_img + blur, 0.0, 1.0)
+        else:
+            final = torch.clamp(bg_img + disk_img, 0.0, 1.0)
+        return final, bg_img, disk_img
+
+    def _run_frame(self, cam_pos, fov, frame, skip_bloom):
+        camera = self.camera(cam_pos, fov)
+        trace = self.trace(camera, escape_radius(self.config.r_max, cam_pos))
+        bg, disk_rgb = self.shade(trace, camera, frame)
+        return self.post(bg, disk_rgb, use_bloom=not skip_bloom)
+
+    # -- rendering ---------------------------------------------------------
+
+    def render_layers(self, cam_pos, fov: float,
+                      frame: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Render background + disk layers, each (H, W, 3) on device."""
+        _, bg, disk = self._run_frame(cam_pos, fov, frame, True)
+        return bg, disk
+
+    def render_device(self, cam_pos, fov: float, frame: int = 0,
+                      skip_bloom: bool = False) -> torch.Tensor:
+        """Render a full frame, returned on device (H, W, 3)."""
+        final, _, _ = self._run_frame(cam_pos, fov, frame, skip_bloom)
+        return final
+
+    def render(self, cam_pos, fov: float, frame: int = 0,
+               skip_bloom: bool = False) -> np.ndarray:
+        """Render a full frame -> (H, W, 3) float32 numpy in [0, 1]."""
+        return self.render_device(cam_pos, fov, frame, skip_bloom).cpu().numpy()
