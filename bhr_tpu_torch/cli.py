@@ -4,13 +4,14 @@ The port of ``bhr_tpu/cli.py`` for the single-frame mode: the same scene
 flags and defaults (reference render.py:4518-4695), plus ``--width`` /
 ``--height``, with ``--device`` choosing ``cuda`` (the default) or
 ``cpu``. The switches of modes the port does not have yet (--video,
---interactive, --disk_model v2, --anti_alias lod_radius, --lens_flare,
---tile_shards, --disk_texture auto, --coordinator_address) are parsed
-and refused with NotImplementedError, naming the ROADMAP item that
-ports them; those modes' own settings return with them.
+--interactive, --disk_model v2, --tile_shards, --disk_texture auto,
+--coordinator_address) are parsed and refused with NotImplementedError,
+naming the ROADMAP item that ports them; those modes' own settings
+return with them.
 
 Usage:
     python -m bhr_tpu_torch.cli --pov 6 0 0.5 --fov 90 -r fhd -o out/frame.png
+    python -m bhr_tpu_torch.cli -r fhd --anti_alias lod_radius --lens_flare
     python -m bhr_tpu_torch.cli -r sd --device cpu -o out/frame.png
 """
 
@@ -61,6 +62,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--lens_flare", action="store_true")
     p.add_argument("--anti_alias", type=str, default="disabled",
                    choices=["disabled", "lod_radius"])
+    p.add_argument("--aa_strength", type=float, default=1.0,
+                   help="AA LOD multiplier in [0.5, 2.0]")
     p.add_argument("--device", "-d", type=str, default="cuda",
                    choices=list(DEVICES), help="torch device")
     p.add_argument("--tile_shards", type=int, default=0,
@@ -93,6 +96,7 @@ def config_from_args(args: argparse.Namespace) -> SceneConfig:
         disk_tilt=args.disk_tilt,
         lens_flare=args.lens_flare,
         anti_alias=args.anti_alias,
+        aa_strength=args.aa_strength,
         device=args.device,
         tile_shards=args.tile_shards,
         video=args.video,

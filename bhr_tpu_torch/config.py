@@ -3,8 +3,7 @@
 The port of ``bhr_tpu/config.py``. The fields it shares and their
 validation rules are the same, so a scene means the same thing in both
 packages. It leaves out the settings of modes it does not have yet
-(video, AA strength, V2 knobs, deprecated flags), and differs in two
-ways:
+(video, V2 knobs, deprecated flags), and differs in two ways:
 
 * ``device`` names a torch device, ``"cuda"`` (the default) or
   ``"cpu"``, and :func:`torch_device` refuses ``"cuda"`` on a host
@@ -65,9 +64,10 @@ class SceneConfig:
     disk_rotation_speed: float = 0.1
     seed: int = 42
 
-    # Post-FX / AA (flare and AA are refused until ported)
+    # Post-FX / AA
     lens_flare: bool = False
     anti_alias: str = "disabled"  # "disabled" | "lod_radius"
+    aa_strength: float = 1.0
 
     # Modes (video and interactive are refused until ported; their
     # settings return with them)
@@ -115,6 +115,8 @@ class SceneConfig:
             )
         if self.step_size <= 0:
             raise ValueError(f"step_size must be positive, got {self.step_size}")
+        if not (0.5 <= self.aa_strength <= 2.0):
+            raise ValueError(f"aa_strength must be in [0.5, 2.0], got {self.aa_strength}")
         if self.anti_alias not in ("disabled", "lod_radius"):
             raise ValueError(f"unknown anti_alias mode: {self.anti_alias}")
         if self.disk_model not in ("texture", "v2"):
@@ -145,16 +147,22 @@ class SceneConfig:
                 )
         return self
 
+    @property
+    def use_ray_differentials(self) -> bool:
+        """Whether frames trace the two ray differentials (AA).
+
+        They feed the texture-model mip-LOD sampler only; the v2 volume
+        integrator has no LOD path (``bhr_tpu/config.py:279-287``)."""
+        return self.anti_alias != "disabled" and self.disk_model != "v2"
+
 
 # (predicate, feature, ROADMAP item that ports it). The still frame of a
-# texture-model scene is the only slice the port renders so far.
+# texture-model scene, with AA and lens flare, is what the port renders
+# so far.
 _UNPORTED = (
     (lambda c: c.video, "--video", "Queue 1 item 11"),
     (lambda c: c.interactive, "--interactive", "Queue 1 item 13"),
     (lambda c: c.disk_model == "v2", "--disk_model v2", "Queue 1 item 12"),
-    (lambda c: c.anti_alias != "disabled", "--anti_alias lod_radius",
-     "Queue 1 item 9 and Queue 2 item 2"),
-    (lambda c: c.lens_flare, "--lens_flare", "Queue 1 item 10"),
     (lambda c: c.tile_shards > 1, "--tile_shards > 1",
      "Queue 1 item 15 and Queue 2 item 4"),
     (lambda c: c.disk_texture == "auto", "--disk_texture auto",

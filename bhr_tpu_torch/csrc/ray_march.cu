@@ -1,35 +1,48 @@
 // Ray-march kernel for NVIDIA Hopper (sm_90a): per-ray RK4 integration
 // of Schwarzschild null geodesics with disk-plane hit recording.
 //
-// Replaces bhr_tpu/ops/geodesic_pallas.py: build_ray_march_kernel, slim
-// hit-recording variant (with_differentials=False, record_hits=True) —
-// the trace of the default still frame. The plain PyTorch version it is
-// checked against is bhr_tpu_torch/ops/geodesic.py: trace_geodesics.
+// Replaces bhr_tpu/ops/geodesic_pallas.py: build_ray_march_kernel, in
+// the static variants the still frame uses, as one template
+// ray_march<kDiff, kRecord, kSteps> compiled once:
+//   slim    (with_differentials=False, record_hits=True)  default frame
+//   aa      (with_differentials=True,  record_hits=True)  anti-aliased
+//   nodisk  (record_hits=False)                           no disk texture
+// and each of the three with record_step_counts=True (a per-ray step
+// count). The plain PyTorch version it is checked against is
+// bhr_tpu_torch/ops/geodesic.py: trace_geodesics.
 //
 // What bounds it on this card: FP32 ALU work and warp divergence, not
 // memory. Each RK4 step is ~150 FP32 operations (4 square roots, 5
-// divides) on state held in registers; a ray reads nothing and writes
-// its result once at the end, about 210 bytes (hits 4x12 floats, escape
-// direction, flags, count) — about 0.4 GB for a 1920x1080 frame. Rays
-// take from a few hundred steps (escaping sky) to the iteration cap
-// (photon-ring orbits), so a warp runs as long as its slowest ray.
+// divides) on state held in registers, and the AA variant adds two
+// Jacobian-transported differentials, ~250 more operations and 4 more
+// divides per step. A ray reads nothing and writes its result once,
+// about 210 bytes (hits 4x12 floats, escape direction, flags, count) —
+// about 0.4 GB for a 1920x1080 frame. Rays take from tens of steps
+// (escaping sky) to the iteration cap (photon-ring orbits), so a warp
+// runs as long as its slowest ray.
 //
 // Design:
 //  * One thread per pixel; each thread loops until its ray is captured,
 //    escapes or reaches max_iter. The TPU kernel's tile-wide early exit,
 //    unrolled exit checks, float mask carries and two-phase fat/slim loop
 //    only shaped the TPU's lock-step vector loop and do not change
-//    results, so none of them is here.
+//    results, so none of them is here: the AA variant transports its
+//    differentials on every step of a live ray.
 //  * Blocks are 8 x 16 pixels, so each warp is an 8 x 4 patch of the
 //    image rather than a 32-pixel row segment. Long-running rays cluster
 //    in a thin annulus around the photon ring; a compact patch keeps a
 //    warp's rays similar in length, which limits divergence.
-//  * The K = 4 hit slots x 5 features stay in registers (K is a
-//    compile-time constant and every slot index is unrolled).
+//  * Slim: the K = 4 hit slots x 5 features stay in registers (K is a
+//    compile-time constant and every slot index is unrolled). AA: 4 x 12
+//    features would spill, and a slot is written exactly once (when
+//    count == k), so a recorded crossing goes straight to `hits` in
+//    global memory and the unwritten slots are zeroed at the end.
 //  * Outputs are written straight into TraceResult's layout (no padding,
 //    no crop): captured/escaped (N,) bytes, escape_dir (N,3), hit_count
-//    (N,) int32, hits (K,12,N) with features 5..11 zero. The wrapper
-//    allocates them; the kernel allocates nothing.
+//    (N,) int32, hits (K,12,N), steps (N,) int32. The slim variant leaves
+//    features 5..11 zero (as the Pallas slim kernel; its plain version
+//    writes t_frac at 11), the AA variant writes all 12 (t_frac at 11).
+//    The wrapper allocates them; the kernel allocates nothing.
 //  * Arithmetic follows the plain version's operation order, with the
 //    correctly rounded sqrtf and '/' (no rsqrtf), and is built with
 //    -fmad=false and without --use_fast_math, so the kernel and the plain
@@ -45,6 +58,7 @@ constexpr int kSlots = 4;        // MAX_DISK_CROSSINGS
 constexpr int kFeatures = 12;    // HIT_FEATURES
 constexpr int kBlockX = 8;
 constexpr int kBlockY = 16;
+constexpr int kNumVariants = 6;  // C entry points below
 
 // Float parameter layout (bhr_tpu_torch/ops/geodesic_cuda.py _FPARAMS).
 enum FParam {
@@ -63,18 +77,94 @@ struct Params {
 // version's Python scalars are doubles that torch rounds the same way.
 #define F32(x) static_cast<float>(x)
 
+// -1.5 L^2 / r^5 at a stage position; r2 = x*x + y*y + z*z.
 __device__ __forceinline__ float accel_factor(float x, float y, float z,
-                                              float neg15_l2) {
-  const float r2 = x * x + y * y + z * z;
+                                              float neg15_l2, float& r2) {
+  r2 = x * x + y * y + z * z;
   const float r5 = r2 * r2 * sqrtf(r2);
   return neg15_l2 / r5;
 }
 
+// Image plane 1 unit ahead of the camera, from the 14 camera floats
+// (bhr_tpu_torch.ops.geodesic._image_plane_rays).
+struct ImagePlane {
+  float cx, cy, cz, rx, ry, rz, ux, uy, uz, pw, ph, tlx, tly, tlz;
+
+  // Unit direction through pixel (col + ox, row + oy).
+  __device__ __forceinline__ void ray(float col, float row, float ox,
+                                      float oy, float& vx, float& vy,
+                                      float& vz) const {
+    const float a = (col + ox) * pw;
+    const float b = (row + oy) * ph;
+    const float dx = tlx + a * rx - b * ux - cx;
+    const float dy = tly + a * ry - b * uy - cy;
+    const float dz = tlz + a * rz - b * uz - cz;
+    const float dn = sqrtf(dx * dx + dy * dy + dz * dz);
+    vx = dx / dn;
+    vy = dy / dn;
+    vz = dz / dn;
+  }
+};
+
+// An RK4 stage position with its factor f = -1.5 L^2 / r^5 and r^2.
+struct Stage {
+  float x, y, z, f, r2;
+};
+
+// h * J(s) d = h * f (d - 5 s (s.d) / r^2): the acceleration's Jacobian
+// applied to a position differential, with the stage's own f and r^2.
+__device__ __forceinline__ void h_jac(float h, const Stage& s,
+                                      const float* d, float* out) {
+  const float proj = (s.x * d[0] + s.y * d[1] + s.z * d[2]) / s.r2;
+  out[0] = h * (s.f * (d[0] - (F32(5.0) * s.x) * proj));
+  out[1] = h * (s.f * (d[1] - (F32(5.0) * s.y) * proj));
+  out[2] = h * (s.f * (d[2] - (F32(5.0) * s.z) * proj));
+}
+
+// One RK4 step of a ray differential (dp, dd) = (d_pos, d_dir) at the
+// main ray's four stage positions (bhr_tpu/ops/geodesic.py:119-133).
+__device__ __forceinline__ void diff_rk4(float h, const Stage* st,
+                                         const float* dp, const float* dd,
+                                         float* ndp, float* ndd) {
+  const float six = F32(6.0), two = F32(2.0), half = F32(0.5);
+  float q1p[3], q1d[3], q2p[3], q2d[3], q3p[3], q3d[3], q4p[3], q4d[3];
+  float t[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) q1p[c] = h * dd[c];
+  h_jac(h, st[0], dp, q1d);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    q2p[c] = h * (dd[c] + half * q1d[c]);
+    t[c] = dp[c] + half * q1p[c];
+  }
+  h_jac(h, st[1], t, q2d);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    q3p[c] = h * (dd[c] + half * q2d[c]);
+    t[c] = dp[c] + half * q2p[c];
+  }
+  h_jac(h, st[2], t, q3d);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    q4p[c] = h * (dd[c] + q3d[c]);
+    t[c] = dp[c] + q3p[c];
+  }
+  h_jac(h, st[3], t, q4d);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    ndp[c] = dp[c] + (q1p[c] + two * q2p[c] + two * q3p[c] + q4p[c]) / six;
+    ndd[c] = dd[c] + (q1d[c] + two * q2d[c] + two * q3d[c] + q4d[c]) / six;
+  }
+}
+
+template <bool kDiff, bool kRecord, bool kSteps>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
-ray_march_slim(Params p, const float* __restrict__ cam,
-               uint8_t* __restrict__ captured, uint8_t* __restrict__ escaped,
-               float* __restrict__ escape_dir, int32_t* __restrict__ hit_count,
-               float* __restrict__ hits) {
+ray_march(Params p, const float* __restrict__ cam,
+          uint8_t* __restrict__ captured, uint8_t* __restrict__ escaped,
+          float* __restrict__ escape_dir, int32_t* __restrict__ hit_count,
+          float* __restrict__ hits, int32_t* __restrict__ steps) {
+  static_assert(kRecord || !kDiff,
+                "differentials are read only at a recorded crossing");
   const int width = p.i[kWidth];
   const int rows = p.i[kHeight];
   const int x = blockIdx.x * kBlockX + threadIdx.x;
@@ -84,30 +174,40 @@ ray_march_slim(Params p, const float* __restrict__ cam,
   const int64_t n_rays = static_cast<int64_t>(rows) * width;
 
   // Primary ray (bhr_tpu_torch.ops.geodesic.primary_rays_from_params).
-  const float cx = cam[0], cy = cam[1], cz = cam[2];
-  const float rx = cam[3], ry = cam[4], rz = cam[5];
-  const float ux = cam[6], uy = cam[7], uz = cam[8];
+  ImagePlane plane;
+  plane.cx = cam[0]; plane.cy = cam[1]; plane.cz = cam[2];
+  plane.rx = cam[3]; plane.ry = cam[4]; plane.rz = cam[5];
+  plane.ux = cam[6]; plane.uy = cam[7]; plane.uz = cam[8];
   const float fx = cam[9], fy = cam[10], fz = cam[11];
-  const float pw = cam[12], ph = cam[13];
-  const float half_w = pw * static_cast<float>(width) * F32(0.5);
-  const float half_h = ph * static_cast<float>(rows) * F32(0.5);
-  const float tlx = cx + fx - rx * half_w + ux * half_h;
-  const float tly = cy + fy - ry * half_w + uy * half_h;
-  const float tlz = cz + fz - rz * half_w + uz * half_h;
-  const float a = (static_cast<float>(x) + F32(0.5)) * pw;
-  const float b = (static_cast<float>(y + p.i[kRow0]) + F32(0.5)) * ph;
-  const float dx = tlx + a * rx - b * ux - cx;
-  const float dy = tly + a * ry - b * uy - cy;
-  const float dz = tlz + a * rz - b * uz - cz;
-  const float dn = sqrtf(dx * dx + dy * dy + dz * dz);
+  plane.pw = cam[12]; plane.ph = cam[13];
+  const float half_w = plane.pw * static_cast<float>(width) * F32(0.5);
+  const float half_h = plane.ph * static_cast<float>(rows) * F32(0.5);
+  plane.tlx = plane.cx + fx - plane.rx * half_w + plane.ux * half_h;
+  plane.tly = plane.cy + fy - plane.ry * half_w + plane.uy * half_h;
+  plane.tlz = plane.cz + fz - plane.rz * half_w + plane.uz * half_h;
+  const float col = static_cast<float>(x);
+  const float row = static_cast<float>(y + p.i[kRow0]);
 
-  float px = cx, py = cy, pz = cz;
-  float vx = dx / dn, vy = dy / dn, vz = dz / dn;
+  float px = plane.cx, py = plane.cy, pz = plane.cz;
+  float vx, vy, vz;
+  plane.ray(col, row, F32(0.5), F32(0.5), vx, vy, vz);
   // L = dir x pos, conserved along the ray.
   const float lx = vy * pz - vz * py;
   const float ly = vz * px - vx * pz;
   const float lz = vx * py - vy * px;
   const float neg15_l2 = F32(-1.5) * (lx * lx + ly * ly + lz * lz);
+
+  // Ray differentials (AA): d_pos = 0, d_dir = the one-pixel direction
+  // delta, per pixel axis (primary_differentials_from_params).
+  float dxp[3] = {0.0f, 0.0f, 0.0f}, dxd[3] = {0.0f, 0.0f, 0.0f};
+  float dyp[3] = {0.0f, 0.0f, 0.0f}, dyd[3] = {0.0f, 0.0f, 0.0f};
+  if constexpr (kDiff) {
+    float ax, ay, az, bx, by, bz;
+    plane.ray(col, row, F32(1.5), F32(0.5), ax, ay, az);
+    plane.ray(col, row, F32(0.5), F32(1.5), bx, by, bz);
+    dxd[0] = ax - vx; dxd[1] = ay - vy; dxd[2] = az - vz;
+    dyd[0] = bx - vx; dyd[1] = by - vy; dyd[2] = bz - vz;
+  }
 
   const float h_base = p.f[kHBase], rs = p.f[kRs], r_floor = p.f[kRFloor];
   const float rs2 = p.f[kRs2], r_escape2 = p.f[kREscape2];
@@ -122,11 +222,13 @@ ray_march_slim(Params p, const float* __restrict__ cam,
     for (int f = 0; f < 5; ++f) slot[k][f] = 0.0f;
   }
   int count = 0;
+  int n_steps = 0;
   bool is_captured = false, is_escaped = false;
   float ex = 0.0f, ey = 0.0f, ez = 0.0f;
   float affine = 0.0f;
 
   for (int it = 0; it < max_iter; ++it) {
+    if constexpr (kSteps) ++n_steps;
     // r-adaptive step: h_base * clamp(min(sqrt(r/rs), 10) /
     // (1 + 2 (rs/r)^3), 0.2, 10), r clamped at rs + 1e-3.
     const float r = sqrtf(px * px + py * py + pz * pz);
@@ -137,7 +239,8 @@ ray_march_slim(Params p, const float* __restrict__ cam,
     const float h = h_base * fminf(fmaxf(far * near, F32(0.2)), F32(10.0));
 
     // RK4 of (pos, dir) with a = -1.5 L^2 pos / r^5.
-    const float f1 = accel_factor(px, py, pz, neg15_l2);
+    float r2_1, r2_2, r2_3, r2_4;
+    const float f1 = accel_factor(px, py, pz, neg15_l2, r2_1);
     const float k1px = h * vx, k1py = h * vy, k1pz = h * vz;
     const float k1dx = h * (f1 * px), k1dy = h * (f1 * py), k1dz = h * (f1 * pz);
     const float k2px = h * (vx + F32(0.5) * k1dx);
@@ -145,18 +248,18 @@ ray_march_slim(Params p, const float* __restrict__ cam,
     const float k2pz = h * (vz + F32(0.5) * k1dz);
     const float s2x = px + F32(0.5) * k1px, s2y = py + F32(0.5) * k1py,
                 s2z = pz + F32(0.5) * k1pz;
-    const float f2 = accel_factor(s2x, s2y, s2z, neg15_l2);
+    const float f2 = accel_factor(s2x, s2y, s2z, neg15_l2, r2_2);
     const float k2dx = h * (f2 * s2x), k2dy = h * (f2 * s2y), k2dz = h * (f2 * s2z);
     const float k3px = h * (vx + F32(0.5) * k2dx);
     const float k3py = h * (vy + F32(0.5) * k2dy);
     const float k3pz = h * (vz + F32(0.5) * k2dz);
     const float s3x = px + F32(0.5) * k2px, s3y = py + F32(0.5) * k2py,
                 s3z = pz + F32(0.5) * k2pz;
-    const float f3 = accel_factor(s3x, s3y, s3z, neg15_l2);
+    const float f3 = accel_factor(s3x, s3y, s3z, neg15_l2, r2_3);
     const float k3dx = h * (f3 * s3x), k3dy = h * (f3 * s3y), k3dz = h * (f3 * s3z);
     const float k4px = h * (vx + k3dx), k4py = h * (vy + k3dy), k4pz = h * (vz + k3dz);
     const float s4x = px + k3px, s4y = py + k3py, s4z = pz + k3pz;
-    const float f4 = accel_factor(s4x, s4y, s4z, neg15_l2);
+    const float f4 = accel_factor(s4x, s4y, s4z, neg15_l2, r2_4);
     const float k4dx = h * (f4 * s4x), k4dy = h * (f4 * s4y), k4dz = h * (f4 * s4z);
 
     const float six = F32(6.0), two = F32(2.0);
@@ -184,33 +287,70 @@ ray_march_slim(Params p, const float* __restrict__ cam,
       break;
     }
 
+    // Differential transport on the surviving step (on a terminating
+    // step its result would be discarded).
+    float ndxp[3], ndxd[3], ndyp[3], ndyd[3];
+    if constexpr (kDiff) {
+      const Stage st[4] = {{px, py, pz, f1, r2_1}, {s2x, s2y, s2z, f2, r2_2},
+                           {s3x, s3y, s3z, f3, r2_3}, {s4x, s4y, s4z, f4, r2_4}};
+      diff_rk4(h, st, dxp, dxd, ndxp, ndxd);
+      diff_rk4(h, st, dyp, dyd, ndyp, ndyd);
+    }
+
     // Crossing of the tilted plane z = y tan(tilt) on the surviving
     // segment, lerped within the step; recorded inside the annulus.
-    const float f_old = pz - py * tan_t;
-    const float f_new = npz - npy * tan_t;
-    if (f_old * f_new < 0.0f) {
-      const float t_frac = f_old / (f_old - f_new + F32(1e-8));
-      const float hx = px + t_frac * (npx - px);
-      const float hy = py + t_frac * (npy - py);
-      const float hr2 = hx * hx + hy * hy;
-      if (hr2 >= r_in2 && hr2 <= r_out2 && count < kSlots) {
+    if constexpr (kRecord) {
+      const float f_old = pz - py * tan_t;
+      const float f_new = npz - npy * tan_t;
+      if (f_old * f_new < 0.0f) {
+        const float t_frac = f_old / (f_old - f_new + F32(1e-8));
+        const float hx = px + t_frac * (npx - px);
+        const float hy = py + t_frac * (npy - py);
+        const float hr2 = hx * hx + hy * hy;
+        if (hr2 >= r_in2 && hr2 <= r_out2 && count < kSlots) {
+          if constexpr (kDiff) {
+            // Slot `count` is written once, straight to global memory;
+            // the differentials are lerped within the step (PARITY.md
+            // deviation 3).
+            float* out = hits + static_cast<int64_t>(count) * kFeatures * n_rays + n;
+            out[0] = hx;
+            out[n_rays] = hy;
+            out[2 * n_rays] = vx;  // pre-step direction
+            out[3 * n_rays] = vy;
+            out[4 * n_rays] = vz;
 #pragma unroll
-        for (int k = 0; k < kSlots; ++k) {
-          if (k == count) {
-            slot[k][0] = hx;
-            slot[k][1] = hy;
-            slot[k][2] = vx;  // pre-step direction
-            slot[k][3] = vy;
-            slot[k][4] = vz;
+            for (int c = 0; c < 3; ++c) {
+              out[(5 + c) * n_rays] = dxp[c] + t_frac * (ndxp[c] - dxp[c]);
+              out[(8 + c) * n_rays] = dyp[c] + t_frac * (ndyp[c] - dyp[c]);
+            }
+            out[11 * n_rays] = t_frac;
+          } else {
+#pragma unroll
+            for (int k = 0; k < kSlots; ++k) {
+              if (k == count) {
+                slot[k][0] = hx;
+                slot[k][1] = hy;
+                slot[k][2] = vx;  // pre-step direction
+                slot[k][3] = vy;
+                slot[k][4] = vz;
+              }
+            }
           }
+          ++count;
         }
-        ++count;
       }
     }
 
     px = npx; py = npy; pz = npz;
     vx = nvx; vy = nvy; vz = nvz;
     affine = affine_new;
+    if constexpr (kDiff) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        dxp[c] = ndxp[c]; dxd[c] = ndxd[c];
+        dyp[c] = ndyp[c]; dyd[c] = ndyd[c];
+      }
+    }
   }
 
   captured[n] = is_captured ? 1 : 0;
@@ -219,37 +359,68 @@ ray_march_slim(Params p, const float* __restrict__ cam,
   escape_dir[3 * n + 1] = ey;
   escape_dir[3 * n + 2] = ez;
   hit_count[n] = count;
+  if constexpr (kSteps) steps[n] = n_steps;
 #pragma unroll
   for (int k = 0; k < kSlots; ++k) {
     float* out = hits + static_cast<int64_t>(k) * kFeatures * n_rays + n;
+    if constexpr (kDiff) {
+      if (k >= count) {
 #pragma unroll
-    for (int f = 0; f < 5; ++f) out[f * n_rays] = slot[k][f];
+        for (int f = 0; f < kFeatures; ++f) out[f * n_rays] = 0.0f;
+      }
+    } else {
 #pragma unroll
-    for (int f = 5; f < kFeatures; ++f) out[f * n_rays] = 0.0f;
+      for (int f = 0; f < 5; ++f) out[f * n_rays] = slot[k][f];
+#pragma unroll
+      for (int f = 5; f < kFeatures; ++f) out[f * n_rays] = 0.0f;
+    }
   }
 }
 
-}  // namespace
-
-// Plain C entry point (loaded with ctypes). Launches on `stream` and
-// returns the cudaError_t of the launch; does not synchronize.
-extern "C" int bhr_ray_march_slim(const float* fparams, const int* iparams,
-                                  const float* cam, void* captured,
-                                  void* escaped, void* escape_dir,
-                                  void* hit_count, void* hits, void* stream) {
+// Launch one instantiation on `stream`; returns the cudaError_t of the
+// launch and does not synchronize.
+template <bool kDiff, bool kRecord, bool kSteps>
+int launch(const float* fparams, const int* iparams, const float* cam,
+           void* captured, void* escaped, void* escape_dir, void* hit_count,
+           void* hits, void* steps, void* stream) {
   Params p;
   for (int j = 0; j < kNumFParams; ++j) p.f[j] = fparams[j];
   for (int j = 0; j < kNumIParams; ++j) p.i[j] = iparams[j];
   if (p.i[kWidth] <= 0 || p.i[kHeight] <= 0) return cudaErrorInvalidValue;
+  if (kSteps && steps == nullptr) return cudaErrorInvalidValue;
   const dim3 block(kBlockX, kBlockY);
   const dim3 grid((p.i[kWidth] + kBlockX - 1) / kBlockX,
                   (p.i[kHeight] + kBlockY - 1) / kBlockY);
-  ray_march_slim<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      p, cam, static_cast<uint8_t*>(captured), static_cast<uint8_t*>(escaped),
-      static_cast<float*>(escape_dir), static_cast<int32_t*>(hit_count),
-      static_cast<float*>(hits));
+  ray_march<kDiff, kRecord, kSteps>
+      <<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+          p, cam, static_cast<uint8_t*>(captured),
+          static_cast<uint8_t*>(escaped), static_cast<float*>(escape_dir),
+          static_cast<int32_t*>(hit_count), static_cast<float*>(hits),
+          static_cast<int32_t*>(steps));
   return static_cast<int>(cudaGetLastError());
 }
+
+}  // namespace
+
+// Plain C entry points (loaded with ctypes), one per instantiation the
+// wrapper uses (geodesic_cuda.KERNELS). `steps` is ignored by the
+// variants without step counts and may be NULL there.
+#define BHR_RAY_MARCH_ENTRY(name, kDiff, kRecord, kSteps)                    \
+  extern "C" int name(const float* fparams, const int* iparams,              \
+                      const float* cam, void* captured, void* escaped,       \
+                      void* escape_dir, void* hit_count, void* hits,         \
+                      void* steps, void* stream) {                           \
+    return launch<kDiff, kRecord, kSteps>(fparams, iparams, cam, captured,   \
+                                          escaped, escape_dir, hit_count,    \
+                                          hits, steps, stream);              \
+  }
+
+BHR_RAY_MARCH_ENTRY(bhr_ray_march_slim, false, true, false)
+BHR_RAY_MARCH_ENTRY(bhr_ray_march_aa, true, true, false)
+BHR_RAY_MARCH_ENTRY(bhr_ray_march_nodisk, false, false, false)
+BHR_RAY_MARCH_ENTRY(bhr_ray_march_slim_steps, false, true, true)
+BHR_RAY_MARCH_ENTRY(bhr_ray_march_aa_steps, true, true, true)
+BHR_RAY_MARCH_ENTRY(bhr_ray_march_nodisk_steps, false, false, true)
 
 // Constants the wrapper checks against its own, so the two layouts
 // cannot drift apart silently.
@@ -259,6 +430,7 @@ extern "C" int bhr_ray_march_layout(int which) {
     case 1: return kNumIParams;
     case 2: return kSlots;
     case 3: return kFeatures;
+    case 4: return kNumVariants;
     default: return -1;
   }
 }

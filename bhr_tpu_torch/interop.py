@@ -21,9 +21,10 @@ from .pipeline import Renderer
 
 
 def trace_result_from_numpy(captured, escaped, escape_dir, hit_count, hits,
-                            device="cpu") -> TraceResult:
+                            steps=None, device="cpu") -> TraceResult:
     """TraceResult from arrays in ``bhr_tpu``'s layout: (N,) bool flags,
-    (N, 3) escape directions, (N,) int32 counts, (K, 12, N) hits."""
+    (N, 3) escape directions, (N,) int32 counts, (K, 12, N) hits and,
+    optionally, (N,) int32 step counts."""
     def t(a, dtype):
         return torch.tensor(np.asarray(a), dtype=dtype, device=device)
 
@@ -33,12 +34,15 @@ def trace_result_from_numpy(captured, escaped, escape_dir, hit_count, hits,
         escape_dir=t(escape_dir, torch.float32),
         hit_count=t(hit_count, torch.int32),
         hits=t(hits, torch.float32),
+        steps=None if steps is None else t(steps, torch.int32),
     )
 
 
 def trace_result_to_numpy(trace: TraceResult) -> Tuple[np.ndarray, ...]:
-    """(captured, escaped, escape_dir, hit_count, hits) as NumPy arrays."""
-    return tuple(x.detach().cpu().numpy() for x in trace)
+    """(captured, escaped, escape_dir, hit_count, hits, steps) as NumPy
+    arrays; steps is None when the trace did not count them."""
+    return tuple(None if x is None else x.detach().cpu().numpy()
+                 for x in trace)
 
 
 class _ImportedDiskSystem(DynamicDiskSystem):

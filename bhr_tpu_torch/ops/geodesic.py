@@ -4,7 +4,9 @@ The port of ``bhr_tpu/ops/geodesic.py``: the Cartesian
 equivalent-potential photon equation d^2 x / dlambda^2 =
 -1.5 * L^2 * x / r^5 with conserved L^2 = |dir x pos|^2, integrated by
 RK4 with an r-adaptive step; disk-plane crossings are recorded into a
-fixed (K, 12, N) hit buffer for deferred shading.
+fixed (K, 12, N) hit buffer for deferred shading. For anti-aliasing,
+two ray differentials (one per pixel axis) ride along, transported by
+the acceleration's Jacobian at the main ray's four RK4 stage positions.
 
 This is the plain version of the ray-march kernel
 (``geodesic_cuda.trace_geodesics_cuda``, ``csrc/ray_march.cu``): a
@@ -12,8 +14,8 @@ lock-step masked loop over all rays that runs on any device. It is the
 CPU path and the oracle the kernel is checked against on the card, so
 its arithmetic follows the kernel's operation order exactly:
 
-  * every sum of squares is written x*x + y*y + z*z (never a reduction,
-    whose order is unspecified);
+  * every sum of squares and dot product is written x*x + y*y + z*z
+    (never a reduction, whose order is unspecified);
   * every division divides by a tensor on the same device: PyTorch's
     CUDA division by a CPU scalar multiplies by its reciprocal instead,
     which rounds differently from the kernel's ``/``.
@@ -26,7 +28,7 @@ identical and the loop's cost follows the live rays only.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -35,8 +37,11 @@ from ..constants import MAX_DISK_CROSSINGS, RS
 # Hit-record feature layout along axis 1 of `hits` (K, HIT_FEATURES, N):
 #   0:2   hit_x, hit_y          (world xy on the tilted disk plane)
 #   2:5   ray direction at the crossing step (pre-step, points away from cam)
-#   5:11  ray differentials (zero: the AA variant is not ported yet)
-#   11    t_frac within the step (diagnostics; the kernel writes 0)
+#   5:8   d(pos)/d(pixel_x) at the crossing (with_differentials; else 0)
+#   8:11  d(pos)/d(pixel_y) at the crossing
+#   11    t_frac within the step (diagnostics). This plain version writes
+#         it in every hit-recording variant, as bhr_tpu's pure-JAX tracer
+#         does; the slim kernel writes 0, as the Pallas slim kernel does.
 HIT_FEATURES = 12
 
 # Camera parameter vector layout (as bhr_tpu.ops.geodesic_pallas):
@@ -52,23 +57,18 @@ class TraceResult(NamedTuple):
     escape_dir: torch.Tensor  # (N, 3) unit direction, zero where not escaped
     hit_count: torch.Tensor  # (N,) int32 number of recorded disk crossings
     hits: torch.Tensor  # (K, HIT_FEATURES, N)
+    # (N,) int32 RK4 steps each ray was active for, the terminating step
+    # included (record_step_counts=True); None otherwise.
+    steps: Optional[torch.Tensor] = None
 
 
-def refuse_unported_variant(*, with_differentials: bool = False,
-                            record_step_counts: bool = False,
-                            row_count=None, record_hits: bool = True) -> None:
-    """Raise for a ray-march variant the port does not have yet."""
-    for requested, variant, item in (
-        (with_differentials, "with_differentials (AA)", "Queue 2 item 2"),
-        (record_step_counts, "record_step_counts", "Queue 2 item 3"),
-        (row_count is not None, "row_count (row band)", "Queue 2 item 4"),
-        (not record_hits, "record_hits=False (no disk)", "Queue 2 item 5"),
-    ):
-        if requested:
-            raise NotImplementedError(
-                f"ray-march variant {variant} is not ported to "
-                f"bhr_tpu_torch yet (ROADMAP.md {item})"
-            )
+def refuse_unported_variant(*, row_start: int = 0, row_count=None) -> None:
+    """Raise for the ray-march variant the port does not have yet."""
+    if row_count is not None or row_start != 0:
+        raise NotImplementedError(
+            "ray-march variant row band (row_start/row_count) is not "
+            "ported to bhr_tpu_torch yet (ROADMAP.md Queue 2 item 4)"
+        )
 
 
 class TraceConstants(NamedTuple):
@@ -106,14 +106,14 @@ def trace_constants(*, h_base: float, r_escape: float, rs: float,
     )
 
 
-def primary_rays_from_params(cam_params: torch.Tensor, width: int,
-                             height: int) -> torch.Tensor:
-    """(H*W, 3) unit primary ray directions, row-major (y, x) pixels.
+def _image_plane_rays(cam_params: torch.Tensor, width: int, height: int,
+                      x_off: float, y_off: float) -> torch.Tensor:
+    """(H*W, 3) unit rays through pixel (col + x_off, row + y_off).
 
     Same image-plane arithmetic as the kernel (and the Pallas kernel):
-    plane 1 unit ahead, pixel centers at +0.5, y down, the top-left
-    corner computed in float32 from the 14 camera floats; the
-    normalization divides by the correctly rounded norm.
+    plane 1 unit ahead, y down, the top-left corner computed in float32
+    from the 14 camera floats; the normalization divides by the
+    correctly rounded norm.
     """
     c = cam_params.to(torch.float32)
     dev = c.device
@@ -130,14 +130,57 @@ def primary_rays_from_params(cam_params: torch.Tensor, width: int,
 
     px = torch.arange(width, dtype=torch.float32, device=dev)[None, :]
     py = torch.arange(height, dtype=torch.float32, device=dev)[:, None]
-    a = (px + 0.5) * pw
-    b = (py + 0.5) * ph
+    a = (px + x_off) * pw
+    b = (py + y_off) * ph
     dx = tlx + a * rx - b * ux - cx
     dy = tly + a * ry - b * uy - cy
     dz = tlz + a * rz - b * uz - cz
     norm = torch.sqrt(dx * dx + dy * dy + dz * dz)
     d = torch.stack([dx / norm, dy / norm, dz / norm], dim=-1)
     return d.reshape(-1, 3)
+
+
+def primary_rays_from_params(cam_params: torch.Tensor, width: int,
+                             height: int) -> torch.Tensor:
+    """(H*W, 3) unit primary ray directions (pixel centers at +0.5),
+    row-major (y, x) pixels."""
+    return _image_plane_rays(cam_params, width, height, 0.5, 0.5)
+
+
+def primary_differentials_from_params(cam_params: torch.Tensor, width: int,
+                                      height: int, d0: torch.Tensor):
+    """(d_dir_dx0, d_dir_dy0), each (H*W, 3): the one-pixel direction
+    deltas normalize(ray at +1.5, +0.5) - d0 and likewise in y, with
+    ``d0`` from :func:`primary_rays_from_params` (the Pallas kernel's
+    formula, ``geodesic_pallas.py:188-191``)."""
+    ddx = _image_plane_rays(cam_params, width, height, 1.5, 0.5) - d0
+    ddy = _image_plane_rays(cam_params, width, height, 0.5, 1.5) - d0
+    return ddx, ddy
+
+
+def _diff_rk4(h, stages, dp, dd, six):
+    """One RK4 step of a ray differential (d_pos, d_dir) at the main
+    ray's stage positions: d'' = J(s) d = f (d - 5 s (s.d) / r^2), with
+    each stage's own factor f and r^2 (``bhr_tpu`` geodesic.py:119-133)."""
+
+    def jac(stage, d):
+        s, f, r2 = stage
+        proj = (s[0] * d[0] + s[1] * d[1] + s[2] * d[2]) / r2
+        return [h * (f * (d[c] - 5.0 * s[c] * proj)) for c in range(3)]
+
+    q1p = [h * dd[c] for c in range(3)]
+    q1d = jac(stages[0], dp)
+    q2p = [h * (dd[c] + 0.5 * q1d[c]) for c in range(3)]
+    q2d = jac(stages[1], [dp[c] + 0.5 * q1p[c] for c in range(3)])
+    q3p = [h * (dd[c] + 0.5 * q2d[c]) for c in range(3)]
+    q3d = jac(stages[2], [dp[c] + 0.5 * q2p[c] for c in range(3)])
+    q4p = [h * (dd[c] + q3d[c]) for c in range(3)]
+    q4d = jac(stages[3], [dp[c] + q3p[c] for c in range(3)])
+    ndp = [dp[c] + (q1p[c] + 2.0 * q2p[c] + 2.0 * q3p[c] + q4p[c]) / six
+           for c in range(3)]
+    ndd = [dd[c] + (q1d[c] + 2.0 * q2d[c] + 2.0 * q3d[c] + q4d[c]) / six
+           for c in range(3)]
+    return ndp, ndd
 
 
 def trace_geodesics(
@@ -151,6 +194,8 @@ def trace_geodesics(
     r_inner: float = 2.0,
     r_outer: float = 15.0,
     with_differentials: bool = False,
+    d_dir_dx0: Optional[torch.Tensor] = None,
+    d_dir_dy0: Optional[torch.Tensor] = None,
     max_crossings: int = MAX_DISK_CROSSINGS,
     record_hits: bool = True,
     record_step_counts: bool = False,
@@ -163,15 +208,25 @@ def trace_geodesics(
         h_base: base affine step (CLI --step_size).
         r_escape: escape radius; affine cap is 40 * r_escape.
         tilt_deg: disk tilt about the x-axis; plane is z = y * tan(tilt).
+        with_differentials: transport two ray differentials and write
+            them into hit features 5..10 (AA).
+        d_dir_dx0 / d_dir_dy0: (N, 3) initial direction differentials,
+            required with ``with_differentials``
+            (:func:`primary_differentials_from_params`).
         max_crossings: hit-buffer slots per ray (front-to-back order).
+        record_hits: False skips the crossing test (a scene without a
+            disk); hit_count and hits stay zero.
+        record_step_counts: also return each ray's step count.
 
     Rays that neither escape nor get captured within the iteration
     budget report neither flag (background renders black, matching the
     reference).
     """
-    refuse_unported_variant(with_differentials=with_differentials,
-                            record_step_counts=record_step_counts,
-                            record_hits=record_hits)
+    if with_differentials and (d_dir_dx0 is None or d_dir_dy0 is None):
+        raise ValueError("differentials requested but initial deltas missing")
+    # Differentials are read only where a crossing is recorded, so
+    # without hit recording their transport cannot change any output.
+    diffs = with_differentials and record_hits
     dev = directions.device
     f32 = torch.float32
     n = directions.shape[0]
@@ -198,19 +253,31 @@ def trace_geodesics(
     affine = torch.zeros(n, dtype=f32, device=dev)
     hc = torch.zeros(n, dtype=torch.int32, device=dev)  # live rays' counts
     ids = torch.arange(n, device=dev)  # live rays' indices
+    # Differential state of the live rays: d_pos_dx, d_dir_dx, d_pos_dy,
+    # d_dir_dy, three components each.
+    diff = []
+    if diffs:
+        zero = torch.zeros(n, dtype=f32, device=dev)
+        ddx0 = d_dir_dx0.to(device=dev, dtype=f32)
+        ddy0 = d_dir_dy0.to(device=dev, dtype=f32)
+        diff = ([zero] * 3 + [ddx0[:, c].clone() for c in range(3)]
+                + [zero] * 3 + [ddy0[:, c].clone() for c in range(3)])
 
     captured = torch.zeros(n, dtype=torch.bool, device=dev)
     escaped = torch.zeros(n, dtype=torch.bool, device=dev)
     escape_dir = torch.zeros((n, 3), dtype=f32, device=dev)
     hit_count = torch.zeros(n, dtype=torch.int32, device=dev)
     hits = torch.zeros((max_crossings, HIT_FEATURES, n), dtype=f32, device=dev)
+    steps = (torch.zeros(n, dtype=torch.int32, device=dev)
+             if record_step_counts else None)
 
     def accel_factor(x, y, z, nl2):
+        """(-1.5 L^2 / r^5, r^2) at a stage position."""
         r2 = x * x + y * y + z * z
         r5 = r2 * r2 * torch.sqrt(r2)
-        return nl2 / r5
+        return nl2 / r5, r2
 
-    for _ in range(k.max_iter):
+    for it in range(k.max_iter):
         if ids.numel() == 0:
             break
         r = torch.sqrt(px * px + py * py + pz * pz)
@@ -220,24 +287,24 @@ def trace_geodesics(
         near = one / (1.0 + 2.0 * (q * q * q))
         h = k.h_base * torch.clamp(far * near, 0.2, 10.0)
 
-        f1 = accel_factor(px, py, pz, neg15_l2)
+        f1, r2_1 = accel_factor(px, py, pz, neg15_l2)
         k1px, k1py, k1pz = h * vx, h * vy, h * vz
         k1dx, k1dy, k1dz = h * (f1 * px), h * (f1 * py), h * (f1 * pz)
         k2px = h * (vx + 0.5 * k1dx)
         k2py = h * (vy + 0.5 * k1dy)
         k2pz = h * (vz + 0.5 * k1dz)
         s2x, s2y, s2z = px + 0.5 * k1px, py + 0.5 * k1py, pz + 0.5 * k1pz
-        f2 = accel_factor(s2x, s2y, s2z, neg15_l2)
+        f2, r2_2 = accel_factor(s2x, s2y, s2z, neg15_l2)
         k2dx, k2dy, k2dz = h * (f2 * s2x), h * (f2 * s2y), h * (f2 * s2z)
         k3px = h * (vx + 0.5 * k2dx)
         k3py = h * (vy + 0.5 * k2dy)
         k3pz = h * (vz + 0.5 * k2dz)
         s3x, s3y, s3z = px + 0.5 * k2px, py + 0.5 * k2py, pz + 0.5 * k2pz
-        f3 = accel_factor(s3x, s3y, s3z, neg15_l2)
+        f3, r2_3 = accel_factor(s3x, s3y, s3z, neg15_l2)
         k3dx, k3dy, k3dz = h * (f3 * s3x), h * (f3 * s3y), h * (f3 * s3z)
         k4px, k4py, k4pz = h * (vx + k3dx), h * (vy + k3dy), h * (vz + k3dz)
         s4x, s4y, s4z = px + k3px, py + k3py, pz + k3pz
-        f4 = accel_factor(s4x, s4y, s4z, neg15_l2)
+        f4, r2_4 = accel_factor(s4x, s4y, s4z, neg15_l2)
         k4dx, k4dy, k4dz = h * (f4 * s4x), h * (f4 * s4y), h * (f4 * s4z)
 
         npx = px + (k1px + 2.0 * k2px + 2.0 * k3px + k4px) / six
@@ -263,36 +330,54 @@ def trace_geodesics(
                                min=min_norm)
             escaped[sel] = True
             escape_dir[sel] = torch.stack([ex / norm, ey / norm, ez / norm], 1)
+        if steps is not None:
+            steps[ids[~survive]] = it + 1
+
+        new_diff = []
+        if diffs:
+            stages = (((px, py, pz), f1, r2_1), ((s2x, s2y, s2z), f2, r2_2),
+                      ((s3x, s3y, s3z), f3, r2_3), ((s4x, s4y, s4z), f4, r2_4))
+            for a in (0, 6):  # the x and the y differential
+                ndp, ndd = _diff_rk4(h, stages, diff[a:a + 3],
+                                     diff[a + 3:a + 6], six)
+                new_diff += ndp + ndd
 
         # Tilted-plane crossing test on the surviving segment (the
         # reference breaks on capture/escape before the disk test).
-        f_old = pz - py * k.tan_t
-        f_new = npz - npy * k.tan_t
-        crossing = survive & (f_old * f_new < 0)
-        if bool(crossing.any()):
+        if record_hits:
+            f_old = pz - py * k.tan_t
+            f_new = npz - npy * k.tan_t
+            crossing = survive & (f_old * f_new < 0)
+        if record_hits and bool(crossing.any()):
             t_frac = f_old / (f_old - f_new + eps_t)
             hx = px + t_frac * (npx - px)
             hy = py + t_frac * (npy - py)
             hr2 = hx * hx + hy * hy
             record = (crossing & (hr2 >= k.r_in2) & (hr2 <= k.r_out2)
                       & (hc < max_crossings))
-            feats = torch.stack([hx, hy, vx, vy, vz, t_frac], dim=0)
+            if diffs:
+                # Within-step lerp of d_pos (PARITY.md deviation 3).
+                dfeat = [diff[a] + t_frac * (new_diff[a] - diff[a])
+                         for a in (0, 1, 2, 6, 7, 8)]
+            else:
+                dfeat = [torch.zeros_like(hx)] * 6
+            feats = torch.stack([hx, hy, vx, vy, vz, *dfeat, t_frac], dim=0)
             for slot in range(max_crossings):
                 m = record & (hc == slot)
                 if bool(m.any()):
-                    sel = ids[m]
-                    hits[slot, 0:5, sel] = feats[0:5, m]
-                    hits[slot, 11, sel] = feats[5, m]
+                    hits[slot, :, ids[m]] = feats[:, m]
             hc = hc + record.to(torch.int32)
             hit_count[ids[record]] = hc[record]
 
         keep = survive.nonzero().squeeze(1)
+        live = [npx, npy, npz, nvx, nvy, nvz, affine_new, hc, neg15_l2,
+                *new_diff]
         if keep.numel() < ids.numel():
             ids = ids[keep]
-            (px, py, pz, vx, vy, vz, affine, hc, neg15_l2) = (
-                npx[keep], npy[keep], npz[keep], nvx[keep], nvy[keep],
-                nvz[keep], affine_new[keep], hc[keep], neg15_l2[keep])
-        else:
-            px, py, pz, vx, vy, vz, affine = npx, npy, npz, nvx, nvy, nvz, affine_new
-
-    return TraceResult(captured, escaped, escape_dir, hit_count, hits)
+            live = [x[keep] for x in live]
+        (px, py, pz, vx, vy, vz, affine, hc, neg15_l2), diff = live[:9], live[9:]
+    if steps is not None:
+        # The loop stops early only once no ray is live, so rays live
+        # here were active for the whole budget.
+        steps[ids] = k.max_iter
+    return TraceResult(captured, escaped, escape_dir, hit_count, hits, steps)

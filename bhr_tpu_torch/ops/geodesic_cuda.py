@@ -3,9 +3,13 @@
 The port of ``bhr_tpu/ops/geodesic_pallas.py``: ``trace_geodesics_cuda``
 is the counterpart of ``trace_geodesics_pallas`` and ``camera_params``
 packs the same 14 camera floats. The kernel runs one thread per pixel,
-builds its primary ray from the camera floats, integrates it until it is
+builds its primary ray (and, for AA, its two one-pixel ray
+differentials) from the camera floats, integrates it until it is
 captured, escapes or reaches the iteration cap, and writes the
 TraceResult layout directly.
+
+Each static variant is one instantiation of the kernel template, named
+in ``KERNELS``; ``kernel_name`` picks the one a call needs.
 
 Routing is by the device of ``cam_params``: a CUDA tensor launches the
 kernel (or raises); a CPU tensor runs the plain version,
@@ -27,17 +31,24 @@ from .geodesic import (
     CAM_PARAMS,
     HIT_FEATURES,
     TraceResult,
+    primary_differentials_from_params,
     primary_rays_from_params,
     refuse_unported_variant,
     trace_constants,
     trace_geodesics,
 )
 
-# Parameter layouts of bhr_ray_march_slim (enum FParam / IParam in the
-# .cu source; checked against the library's own counts at load).
+# Parameter layouts of the bhr_ray_march_* entry points (enum FParam /
+# IParam in the .cu source; checked against the library's own counts at
+# load).
 _FPARAMS = ("h_base", "rs", "r_floor", "rs2", "r_escape2", "max_affine",
             "tan_t", "r_in2", "r_out2")
 _IPARAMS = ("width", "height", "row0", "max_iter")
+
+# The kernel's instantiations; the C entry point of each is "bhr_" + name.
+KERNELS = ("ray_march_slim", "ray_march_aa", "ray_march_nodisk",
+           "ray_march_slim_steps", "ray_march_aa_steps",
+           "ray_march_nodisk_steps")
 
 _lib = None
 
@@ -50,15 +61,31 @@ def _kernel_lib():
         lib.bhr_ray_march_layout.argtypes = [ctypes.c_int]
         lib.bhr_ray_march_layout.restype = ctypes.c_int
         expect = (len(_FPARAMS), len(_IPARAMS), MAX_DISK_CROSSINGS,
-                  HIT_FEATURES)
-        got = tuple(lib.bhr_ray_march_layout(i) for i in range(4))
+                  HIT_FEATURES, len(KERNELS))
+        got = tuple(lib.bhr_ray_march_layout(i) for i in range(len(expect)))
         if got != expect:
             raise RuntimeError(
                 f"ray_march.cu layout {got} != wrapper layout {expect}")
-        lib.bhr_ray_march_slim.argtypes = [ctypes.c_void_p] * 9
-        lib.bhr_ray_march_slim.restype = ctypes.c_int
+        for name in KERNELS:
+            fn = getattr(lib, f"bhr_{name}")
+            fn.argtypes = [ctypes.c_void_p] * 10
+            fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def kernel_name(*, with_differentials: bool, record_hits: bool,
+                record_step_counts: bool) -> str:
+    """The instantiation that traces a variant. Differentials are read
+    only at a recorded crossing, so AA without hit recording is the
+    no-disk kernel: its outputs are the same."""
+    if not record_hits:
+        base = "ray_march_nodisk"
+    elif with_differentials:
+        base = "ray_march_aa"
+    else:
+        base = "ray_march_slim"
+    return base + ("_steps" if record_step_counts else "")
 
 
 def camera_params(camera: Camera) -> np.ndarray:
@@ -96,20 +123,17 @@ def trace_geodesics_cuda(
     ((14,) float32, see ``camera_params``) -> TraceResult with flat
     row-major (H*W) ray order.
 
-    Only the slim hit-recording variant is ported; any other variant
-    raises NotImplementedError on every device.
+    ``with_differentials`` writes the AA hit features 5..11,
+    ``record_hits=False`` skips the crossing test (hits stay zero) and
+    ``record_step_counts`` fills ``TraceResult.steps``. The row band
+    (``row_start``/``row_count``) is not ported and raises
+    NotImplementedError on every device.
     """
-    refuse_unported_variant(with_differentials=with_differentials,
-                            record_step_counts=record_step_counts,
-                            row_count=row_count, record_hits=record_hits)
+    refuse_unported_variant(row_start=row_start, row_count=row_count)
     if max_crossings != MAX_DISK_CROSSINGS:
         raise ValueError(
             f"the kernel holds {MAX_DISK_CROSSINGS} hit slots, got "
             f"max_crossings={max_crossings}")
-    if row_start != 0:
-        raise NotImplementedError(
-            "row_start != 0 traces a row band: ray-march variant not "
-            "ported to bhr_tpu_torch yet (ROADMAP.md Queue 2 item 4)")
     if (cam_params.shape != (CAM_PARAMS,) or cam_params.dtype != torch.float32
             or not cam_params.is_contiguous()):
         raise ValueError(
@@ -117,22 +141,32 @@ def trace_geodesics_cuda(
             f"tensor, got {tuple(cam_params.shape)} {cam_params.dtype}")
     trace_kw = dict(h_base=h_base, r_escape=r_escape, rs=rs,
                     tilt_deg=tilt_deg, r_inner=r_inner, r_outer=r_outer)
+    variant = dict(with_differentials=with_differentials,
+                   record_hits=record_hits,
+                   record_step_counts=record_step_counts)
     dev = cam_params.device
     if dev.type == "cpu":
         dirs = primary_rays_from_params(cam_params, width, height)
-        return trace_geodesics(cam_params[0:3], dirs, **trace_kw)
+        ddx = ddy = None
+        if with_differentials:
+            ddx, ddy = primary_differentials_from_params(
+                cam_params, width, height, dirs)
+        return trace_geodesics(cam_params[0:3], dirs, d_dir_dx0=ddx,
+                               d_dir_dy0=ddy, **trace_kw, **variant)
     if dev.type != "cuda":
         raise ValueError(f"no ray-march route for device {dev}")
-    return _launch(cam_params, width, height, trace_kw)
+    return _launch(kernel_name(**variant), cam_params, width, height,
+                   trace_kw, record_step_counts)
 
 
-def _launch(cam: torch.Tensor, width: int, height: int,
-            trace_kw: dict) -> TraceResult:
-    """Allocate the outputs and launch the kernel on the current stream."""
+def _launch(name: str, cam: torch.Tensor, width: int, height: int,
+            trace_kw: dict, record_step_counts: bool) -> TraceResult:
+    """Allocate the outputs and launch kernel ``name`` on the current
+    stream."""
     lib = _kernel_lib()
     k = trace_constants(**trace_kw)
     fparams = (ctypes.c_float * len(_FPARAMS))(
-        *(getattr(k, name) for name in _FPARAMS))
+        *(getattr(k, p) for p in _FPARAMS))
     iparams = (ctypes.c_int * len(_IPARAMS))(width, height, 0, k.max_iter)
 
     dev = cam.device
@@ -143,21 +177,24 @@ def _launch(cam: torch.Tensor, width: int, height: int,
     hit_count = torch.empty(n, dtype=torch.int32, device=dev)
     hits = torch.empty((MAX_DISK_CROSSINGS, HIT_FEATURES, n),
                        dtype=torch.float32, device=dev)
+    steps = (torch.empty(n, dtype=torch.int32, device=dev)
+             if record_step_counts else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.bhr_ray_march_slim(
+        err = getattr(lib, f"bhr_{name}")(
             ctypes.cast(fparams, ctypes.c_void_p),
             ctypes.cast(iparams, ctypes.c_void_p),
             cam.data_ptr(), captured.data_ptr(), escaped.data_ptr(),
             escape_dir.data_ptr(), hit_count.data_ptr(), hits.data_ptr(),
-            stream,
+            None if steps is None else steps.data_ptr(), stream,
         )
     if err != 0:
-        raise RuntimeError(f"ray_march_slim launch failed: cudaError {err}")
-    trace_geodesics_cuda.launches += 1
-    return TraceResult(captured, escaped, escape_dir, hit_count, hits)
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    trace_geodesics_cuda.launches[name] += 1
+    return TraceResult(captured, escaped, escape_dir, hit_count, hits, steps)
 
 
-# Kernel launches made through this wrapper (never the plain version's
-# runs), so a caller can show a run went through the kernel.
-trace_geodesics_cuda.launches = 0
+# Kernel launches made through this wrapper, by instantiation (never the
+# plain version's runs), so a caller can show a run went through the
+# kernel it expects.
+trace_geodesics_cuda.launches = dict.fromkeys(KERNELS, 0)

@@ -1,15 +1,16 @@
 """Gather-based texture sampling (equirect skybox, polar disk) + mips.
 
 The port of the f32 samplers the renderer uses in ``bhr_tpu/ops/
-sampling.py`` (``sample_skybox_quad`` and ``sample_disk_quad`` off the
-TPU, where textures stay f32). The TPU storage layouts (quad packing,
+sampling.py`` (``sample_skybox_quad``, ``sample_disk_quad`` and
+``sample_disk_mip_atlas`` off the TPU, where textures stay f32). The TPU storage layouts (quad packing,
 gamma-u8 words, the mip atlas, gather bands) exist for TPU gather cost
 and are not ported: a plain 4-tap bilinear gather gives the same values,
 with the quad path's clamp and wrap rule —
 
   * texel addressing is floor-based with no half-texel offset;
   * u (azimuth) wraps; v (radius / polar angle) clamps, and above the
-    top row the blend weight fv is 0, so row 0 is sampled alone;
+    top row the blend weight fv is 0, so row 0 is sampled alone; a mip
+    level wraps and clamps at its own size;
   * the disk texture is polar, rows = radius in [r_inner, r_outer],
     columns = phi in [0, 2pi), with a Keplerian rotation offset
     phi' = phi + t_offset * omega(r).
@@ -26,14 +27,17 @@ from .fastmath import fast_arccos, fast_atan2
 TWO_PI = 2.0 * math.pi
 
 
-def _bilinear_gather(tex: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Bilinear lookup of ``tex`` (H, W, C) at texel coords (v=row, u=col).
+def _bilinear_flat(flat: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                   tex_w, tex_h, stride: int, base=0) -> torch.Tensor:
+    """Bilinear lookup at texel coords (v=row, u=col) in a tex_h x tex_w
+    texture whose texel (row, col) is ``flat[base + row * stride + col]``
+    (``flat``: (texels, C)). ``tex_w``, ``tex_h`` and ``base`` are ints,
+    or int64 tensors shaped like ``u`` for a per-sample mip level.
 
-    u wraps modulo W; v clamps to [0, H-1] with fv forced to 0 above
-    the top row (``bhr_tpu.ops.sampling._bilinear_quad_gather``).
+    u wraps modulo tex_w; v clamps to [0, tex_h - 1] with fv forced to 0
+    above the top row (``bhr_tpu.ops.sampling._bilinear_quad_gather``).
     Returns (*batch, C).
     """
-    tex_h, tex_w = tex.shape[0], tex.shape[1]
     u0 = torch.floor(u)
     v0 = torch.floor(v)
     fu = (u - u0)[..., None]
@@ -44,20 +48,30 @@ def _bilinear_gather(tex: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> tor
 
     u0w = torch.remainder(u0, tex_w)
     u1w = torch.remainder(u0w + 1, tex_w)
-    v0h = torch.clamp(v0, 0, tex_h - 1)
-    v1h = torch.clamp(v0h + 1, max=tex_h - 1)
+    last = tex_h - 1
+    v0h = torch.clamp(v0, min=0)
+    v0h = torch.where(v0h > last, last, v0h)
+    v1h = torch.where(v0h + 1 > last, last, v0h + 1)
+    row0 = base + v0h * stride
+    row1 = base + v1h * stride
 
-    flat = tex.reshape(tex_h * tex_w, -1)
-    c00 = flat[v0h * tex_w + u0w]
-    c10 = flat[v0h * tex_w + u1w]
-    c01 = flat[v1h * tex_w + u0w]
-    c11 = flat[v1h * tex_w + u1w]
+    c00 = flat[row0 + u0w]
+    c10 = flat[row0 + u1w]
+    c01 = flat[row1 + u0w]
+    c11 = flat[row1 + u1w]
     return (
         c00 * (1 - fu) * (1 - fv)
         + c10 * fu * (1 - fv)
         + c01 * (1 - fu) * fv
         + c11 * fu * fv
     )
+
+
+def _bilinear_gather(tex: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Bilinear lookup of ``tex`` (H, W, C) at texel coords (v=row, u=col)."""
+    tex_h, tex_w = tex.shape[0], tex.shape[1]
+    return _bilinear_flat(tex.reshape(tex_h * tex_w, -1), u, v, tex_w, tex_h,
+                          tex_w)
 
 
 def sample_skybox(texture: torch.Tensor, directions: torch.Tensor) -> torch.Tensor:
@@ -130,3 +144,39 @@ def build_mipmaps(base: torch.Tensor, levels: int = 4) -> torch.Tensor:
     for lvl, m in enumerate(mips):
         out[lvl, : m.shape[0], : m.shape[1]] = m
     return out
+
+
+def sample_disk_mip(
+    mips: torch.Tensor,
+    num_levels: int,
+    hit_x: torch.Tensor,
+    hit_y: torch.Tensor,
+    r_inner: float,
+    r_outer: float,
+    t_offset: float,
+    lod: torch.Tensor,
+) -> torch.Tensor:
+    """Mip-LOD RGBA sample of the padded (L, H, W, 4) pyramid of
+    :func:`build_mipmaps`: the nearest level trunc(clip(lod, 0, L-1)),
+    bilinear within it, with u wrapping modulo the level's own width
+    W >> l and v clamping at its own last row (H >> l) - 1.
+
+    Gives the values of ``bhr_tpu``'s ``sample_disk_mip_atlas`` (and
+    ``sample_disk_mip_quad``), which its Renderer samples off the TPU:
+    fast_atan2 and fv = 0 above the top row. (``bhr_tpu``'s own
+    ``sample_disk_mip`` is its exact-arctan2 f32 oracle, not what it
+    renders with.)
+    """
+    base_h, base_w = mips.shape[1], mips.shape[2]
+    r, phi = _disk_polar(hit_x, hit_y, t_offset)
+
+    lod_i = torch.clamp(lod, 0.0, float(num_levels - 1)).to(torch.int64)
+    pow2 = 2 ** lod_i
+    scale = pow2.to(torch.float32)
+    w_lod = base_w / scale
+    h_lod = base_h / scale
+    u = phi / TWO_PI * w_lod
+    v = (r - r_inner) / (r_outer - r_inner) * h_lod
+    flat = mips.reshape(mips.shape[0] * base_h * base_w, -1)
+    return _bilinear_flat(flat, u, v, base_w // pow2, base_h // pow2, base_w,
+                          lod_i * (base_h * base_w))

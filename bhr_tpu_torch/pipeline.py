@@ -1,19 +1,21 @@
-"""Per-frame render pipeline: trace -> deferred shade -> bloom and clamp.
+"""Per-frame render pipeline: trace -> deferred shade -> bloom, clamp, flare.
 
 The port of ``bhr_tpu/pipeline.py`` for the still frame of a texture
 disk. The trace records up to K disk crossings per ray (on a CUDA device
 through the hand-written ray-march kernel, on the CPU through its plain
-version); shading then samples the disk texture at every recorded hit,
-applies the relativistic g-factor, composites the K slots front to back,
-and samples the skybox for escaped rays; bloom and a clamp finish the
-frame. PyTorch runs eagerly, so the ``Renderer`` holds the device
-assets (skybox, disk mip pyramid) and calls each stage in turn.
+version), with two transported ray differentials per crossing when
+anti-aliasing is on; shading then samples the disk texture at every
+recorded hit (with AA, at the mip level the differentials' texture-space
+footprint selects), applies the relativistic g-factor, composites the K
+slots front to back, and samples the skybox for escaped rays; bloom, a
+clamp and the optional lens flare finish the frame. PyTorch runs
+eagerly, so the ``Renderer`` holds the device assets (skybox, disk mip
+pyramid) and calls each stage in turn.
 
-Not ported yet (each raises, see ROADMAP.md): ray-differential AA with
-mip-LOD sampling, lens flare, the V2 volume disk. The TPU's ghost-slot
-crop window is left out on purpose: it only cut TPU gather counts and is
-exact by construction, so the masked pass over all slots gives the same
-image.
+Not ported yet (raises, see ROADMAP.md): the V2 volume disk. The TPU's
+ghost-slot crop window is left out on purpose: it only cut TPU gather
+counts and is exact by construction, so the masked pass over all slots
+gives the same image.
 """
 
 from __future__ import annotations
@@ -29,26 +31,56 @@ from .constants import DISK_ALPHA_GAIN, DISK_COLOR_TEMPERATURE, MAX_DISK_CROSSIN
 from .ops import geodesic
 from .ops.bloom import apply_bloom
 from .ops.geodesic_cuda import camera_params, trace_geodesics_cuda
-from .ops.sampling import build_mipmaps, sample_disk, sample_skybox
+from .ops.lens_flare import apply_lens_flare
+from .ops.sampling import build_mipmaps, sample_disk, sample_disk_mip, sample_skybox
 from .ops.shading import apply_g_factor, pow_const
+
+
+def _lod(feat: torch.Tensor, hit_x: torch.Tensor, hit_y: torch.Tensor,
+         tex_w: int, tex_h: int, r_inner: float, r_outer: float,
+         aa_strength: float) -> torch.Tensor:
+    """Mip LOD of a hit slot from its transported ray differentials
+    (features 5..10): the larger texture-space footprint of one pixel
+    step in x or y, log2 of it, times aa_strength, clipped to [0, 3]
+    (``bhr_tpu/pipeline.py:227-244``, reference render.py:2961-2990)."""
+    dpx = feat[5:8]
+    dpy = feat[8:11]
+    r_cyl = torch.sqrt(hit_x ** 2 + hit_y ** 2 + 1e-6)
+    dr_dx = (hit_x * dpx[0] + hit_y * dpx[1]) / r_cyl
+    dphi_dx = (-hit_y * dpx[0] + hit_x * dpx[1]) / (r_cyl ** 2 + 1e-6)
+    dr_dy = (hit_x * dpy[0] + hit_y * dpy[1]) / r_cyl
+    dphi_dy = (-hit_y * dpy[0] + hit_x * dpy[1]) / (r_cyl ** 2 + 1e-6)
+    dudx = dphi_dx * tex_w / (2.0 * np.pi)
+    dvdx = dr_dx * tex_h / (r_outer - r_inner)
+    dudy = dphi_dy * tex_w / (2.0 * np.pi)
+    dvdy = dr_dy * tex_h / (r_outer - r_inner)
+    grad_sq = torch.maximum(dudx ** 2 + dvdx ** 2, dudy ** 2 + dvdy ** 2)
+    return torch.clamp(
+        torch.log2(torch.clamp(grad_sq, min=1.0)) * aa_strength, 0.0, 3.0)
 
 
 def shade_frame(
     trace: geodesic.TraceResult,
     skybox: torch.Tensor,
-    disk_tex: Optional[torch.Tensor],
+    disk_mips: Optional[torch.Tensor],
     cam_pos: torch.Tensor,
     *,
     r_inner: float,
     r_outer: float,
     tilt_deg: float,
     t_offset: float,
+    use_lod: bool = False,
+    aa_strength: float = 1.0,
     color_temp: float = DISK_COLOR_TEMPERATURE,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Deferred shading over recorded hits.
 
-    Each hit slot k samples the (n_r, n_phi, 4) disk texture, shades
-    it, and composites front to back where k < hit_count. Slot 0 always
+    ``disk_mips`` is the disk texture's padded (L, n_r, n_phi, 4) mip
+    pyramid (``build_mipmaps``), or None for a scene without a disk.
+    Each hit slot k samples it, shades the sample
+    and composites front to back where k < hit_count: at level 0, or
+    with ``use_lod`` (an AA trace, whose hits carry differentials) at
+    the mip level of :func:`_lod` (``sample_disk_mip``). Slot 0 always
     runs; a slot k >= 1 runs only when some ray recorded k + 1 hits
     (``bhr_tpu`` skips it the same way, and running it would round
     alpha through 1 - (1 - alpha)). Escaped rays sample the skybox.
@@ -66,7 +98,8 @@ def shade_frame(
     accum = torch.zeros((n, 3), dtype=torch.float32, device=dev)
     alpha_total = torch.zeros((n,), dtype=torch.float32, device=dev)
 
-    if disk_tex is not None:
+    if disk_mips is not None:
+        tex_h, tex_w = disk_mips.shape[1], disk_mips.shape[2]
         max_hits = int(trace.hit_count.max()) if n else 0
         for k in range(k_slots):
             if k > 0 and k >= max_hits:
@@ -75,7 +108,14 @@ def shade_frame(
             valid = k < trace.hit_count
             hit_x, hit_y = feat[0], feat[1]
             ray_dir = feat[2:5].T
-            rgba = sample_disk(disk_tex, hit_x, hit_y, r_inner, r_outer, t_offset)
+            if use_lod:
+                lod = _lod(feat, hit_x, hit_y, tex_w, tex_h, r_inner, r_outer,
+                           aa_strength)
+                rgba = sample_disk_mip(disk_mips, disk_mips.shape[0], hit_x,
+                                       hit_y, r_inner, r_outer, t_offset, lod)
+            else:
+                rgba = sample_disk(disk_mips[0], hit_x, hit_y, r_inner,
+                                   r_outer, t_offset)
 
             hit_r = torch.sqrt(hit_x * hit_x + hit_y * hit_y)
             hit_z = hit_y * tan_t
@@ -139,20 +179,20 @@ class Renderer:
         self.disk_mips = build_mipmaps(tex, levels=self.mip_levels)
         self.num_mip_levels = int(self.disk_mips.shape[0])
 
-    @property
-    def disk_texture(self) -> Optional[torch.Tensor]:
-        return None if self.disk_mips is None else self.disk_mips[0]
-
     # -- stages ------------------------------------------------------------
 
     def camera(self, cam_pos, fov: float) -> Camera:
         return build_camera(cam_pos, fov, self.width, self.height)
 
-    def trace(self, camera: Camera, r_escape: float) -> geodesic.TraceResult:
+    def trace(self, camera: Camera, r_escape: float,
+              use_diff: bool) -> geodesic.TraceResult:
         """Trace every pixel of ``camera``: the ray-march kernel on CUDA.
 
         ``r_escape`` is a runtime argument of the kernel, so no value of
         it costs a rebuild (``escape_radius(r_max, cam_pos)`` per frame).
+        ``use_diff`` transports ray differentials (the AA trace);
+        crossings are recorded only when there is a disk texture to shade
+        them with.
         """
         cfg = self.config
         cam = torch.as_tensor(camera_params(camera), device=self.device)
@@ -163,26 +203,32 @@ class Renderer:
             tilt_deg=float(cfg.disk_tilt),
             r_inner=float(cfg.disk_inner_radius),
             r_outer=float(cfg.disk_outer_radius),
+            with_differentials=use_diff,
             max_crossings=MAX_DISK_CROSSINGS,
+            record_hits=self.disk_mips is not None,
         )
 
-    def shade(self, trace: geodesic.TraceResult, camera: Camera,
-              frame: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Deferred shade -> (bg, disk) layers, each (N, 3)."""
+    def shade(self, trace: geodesic.TraceResult, camera: Camera, frame: int,
+              use_diff: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Deferred shade -> (bg, disk) layers, each (N, 3); ``use_diff``
+        selects the mip LOD from the trace's differentials."""
         cfg = self.config
         bg, disk_rgb, _ = shade_frame(
-            trace, self.skybox, self.disk_texture,
+            trace, self.skybox, self.disk_mips,
             torch.as_tensor(camera.pos, device=self.device),
             r_inner=float(cfg.disk_inner_radius),
             r_outer=float(cfg.disk_outer_radius),
             tilt_deg=float(cfg.disk_tilt),
             t_offset=float(np.float32(frame * cfg.disk_rotation_speed)),
+            use_lod=use_diff,
+            aa_strength=float(cfg.aa_strength),
         )
         return bg, disk_rgb
 
-    def post(self, bg: torch.Tensor, disk_rgb: torch.Tensor,
-             use_bloom: bool = True):
-        """Bloom + clamp -> (final, bg, disk) images, each (H, W, 3)."""
+    def post(self, bg: torch.Tensor, disk_rgb: torch.Tensor, use_bloom: bool,
+             use_flare: bool):
+        """Bloom + clamp, then the lens flare -> (final, bg, disk) images,
+        each (H, W, 3)."""
         shape = (self.height, self.width, 3)
         bg_img = bg.reshape(shape)
         disk_img = disk_rgb.reshape(shape)
@@ -193,29 +239,42 @@ class Renderer:
             final = torch.clamp(bg_img + disk_img + blur, 0.0, 1.0)
         else:
             final = torch.clamp(bg_img + disk_img, 0.0, 1.0)
+        if use_flare:
+            final = apply_lens_flare(final, disk_img)
         return final, bg_img, disk_img
 
-    def _run_frame(self, cam_pos, fov, frame, skip_bloom):
+    def _run_frame(self, cam_pos, fov, frame, skip_differentials, skip_bloom,
+                   use_flare):
+        use_diff = self.config.use_ray_differentials and not skip_differentials
         camera = self.camera(cam_pos, fov)
-        trace = self.trace(camera, escape_radius(self.config.r_max, cam_pos))
-        bg, disk_rgb = self.shade(trace, camera, frame)
-        return self.post(bg, disk_rgb, use_bloom=not skip_bloom)
+        trace = self.trace(camera, escape_radius(self.config.r_max, cam_pos),
+                           use_diff)
+        bg, disk_rgb = self.shade(trace, camera, frame, use_diff)
+        return self.post(bg, disk_rgb, not skip_bloom, use_flare)
 
     # -- rendering ---------------------------------------------------------
 
-    def render_layers(self, cam_pos, fov: float,
-                      frame: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    def render_layers(self, cam_pos, fov: float, frame: int = 0,
+                      skip_differentials: bool = False
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Render background + disk layers, each (H, W, 3) on device."""
-        _, bg, disk = self._run_frame(cam_pos, fov, frame, True)
+        _, bg, disk = self._run_frame(cam_pos, fov, frame, skip_differentials,
+                                      True, False)
         return bg, disk
 
     def render_device(self, cam_pos, fov: float, frame: int = 0,
-                      skip_bloom: bool = False) -> torch.Tensor:
+                      skip_differentials: bool = False,
+                      skip_bloom: bool = False,
+                      lens_flare: Optional[bool] = None) -> torch.Tensor:
         """Render a full frame, returned on device (H, W, 3)."""
-        final, _, _ = self._run_frame(cam_pos, fov, frame, skip_bloom)
+        use_flare = self.config.lens_flare if lens_flare is None else lens_flare
+        final, _, _ = self._run_frame(cam_pos, fov, frame, skip_differentials,
+                                      skip_bloom, use_flare)
         return final
 
     def render(self, cam_pos, fov: float, frame: int = 0,
-               skip_bloom: bool = False) -> np.ndarray:
+               skip_differentials: bool = False, skip_bloom: bool = False,
+               lens_flare: Optional[bool] = None) -> np.ndarray:
         """Render a full frame -> (H, W, 3) float32 numpy in [0, 1]."""
-        return self.render_device(cam_pos, fov, frame, skip_bloom).cpu().numpy()
+        return self.render_device(cam_pos, fov, frame, skip_differentials,
+                                  skip_bloom, lens_flare).cpu().numpy()

@@ -7,19 +7,32 @@ Phases, one line (or a few) each; any failure raises and the script
 exits non-zero without printing a result:
 
 1. the card (``nvidia-smi`` name and power limit) and the versions;
-2. build the ray-march kernel from ``bhr_tpu_torch/csrc`` and time it;
-3. kernel vs its plain PyTorch version on the card, at 128x32 and at the
-   320x180 golden scene: rays whose captured/escaped/hit_count differ
-   (pass at <= 0.1%) and the largest escape-direction / hit difference
-   on agreeing rays (pass at <= 2e-3);
-4. the golden scene through ``bhr_tpu_torch.modes.render_image`` on
-   CUDA, within max 5e-2 / mean 5e-4 of ``tests/goldens/e2e_cpu.npz``,
-   with exactly one kernel launch and the scene's sanity checks;
-5. the main path at full width: the default 1920x1080 frame through
-   ``bhr_tpu_torch.cli.main``; then one Renderer for 1 warm-up and 3
-   timed frames (median ms per stage with CUDA events), one plain trace
-   at FHD, and the kernel's agreement with it;
-6. a JSON line describing the kernel, then the result line
+2. build the ray-march kernel template from ``bhr_tpu_torch/csrc`` and
+   time it; ptxas registers and spills of each instantiation;
+3. every instantiation (slim, AA, no disk, and each with step counts) vs
+   its plain PyTorch version on the card, at 128x32 and at the 320x180
+   golden scene: rays whose captured/escaped/hit_count differ (pass at
+   <= 0.1%); on agreeing rays the largest difference of the escape
+   direction and hit features 0..4, which are of order 1 (pass at
+   <= 2e-3), and of features 5..10, plus t_frac at 11 for AA, which must
+   be equal (the differentials are of the order of a pixel's angle,
+   ~1e-3, so a 2e-3 bound would not catch a wrong one; the slim kernel
+   leaves t_frac at 11 zero, its plain version writes it); and step
+   counts, which must be equal;
+4. the ``default``, ``aa`` and ``flare`` golden scenes through
+   ``bhr_tpu_torch.modes.render_image`` on CUDA, each within max 5e-2 /
+   mean 5e-4 of ``tests/goldens/e2e_cpu{,_aa,_flare}.npz``, with exactly
+   one launch of the expected kernel and the scene's sanity checks;
+5. the main paths at full width (1920x1080), each with the launch
+   counts set to 0 just before it and read just after: the default frame
+   and the ``--anti_alias lod_radius --lens_flare`` frame through
+   ``bhr_tpu_torch.cli.main``, and a Renderer without a disk texture;
+   per-stage medians (CUDA events) of the default and the AA+flare
+   frames; every instantiation vs its plain version at FHD, the timed
+   runs of the step-count instantiations counted as their path; steps
+   per ray (mean, p99, max), the warps' lane efficiency and useful
+   ray-steps per second of kernel time;
+6. a JSON line describing every instantiation, then the result line
    ``{"ok": true, "device": {...}}`` as the last line.
 
 Imports torch, numpy and bhr_tpu_torch only.
@@ -29,6 +42,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -41,12 +55,26 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 TOL_FLIP_FRAC = 1e-3  # rays allowed to change category
-TOL_FLOAT = 2e-3  # escape direction / hit xy on agreeing rays
+TOL_FLOAT = 2e-3  # escape direction / hit features 0..4 on agreeing rays
 POV = (6.0, 0.0, 0.5)
 GOLDEN = dict(width=320, height=180, pov=POV, fov=60.0, step_size=0.1,
               r_max=10.0, n_stars=100, disk_inner_radius=2.0,
               disk_outer_radius=3.5, disk_tilt=15.0, anti_alias="disabled",
               seed=42)
+# The golden families of tests/e2e_render.py this script renders, and the
+# kernel each launches.
+SCENES = {"default": ({}, "ray_march_slim"),
+          "aa": ({"anti_alias": "lod_radius"}, "ray_march_aa"),
+          "flare": ({"lens_flare": True}, "ray_march_slim")}
+# Trace variants by their kernel's instantiation name.
+VARIANTS = {
+    "ray_march_slim": {},
+    "ray_march_aa": {"with_differentials": True},
+    "ray_march_nodisk": {"record_hits": False},
+}
+VARIANTS.update({f"{k}_steps": dict(v, record_step_counts=True)
+                 for k, v in list(VARIANTS.items())})
+REPLACES = "bhr_tpu/ops/geodesic_pallas.py:582"  # pl.pallas_call of the kernel
 
 
 def say(msg: str) -> None:
@@ -70,36 +98,103 @@ def cuda_ms(fn, reps: int = 1):
     return out, start.elapsed_time(end) / reps
 
 
-def compare(kernel, plain):
-    """(category flips, their fraction, largest float diff on agreeing
-    rays over escape_dir and hit features 0..4)."""
+def compare(kernel, plain, n_feat):
+    """(category flips, their fraction, largest diff on agreeing rays over
+    escape_dir and hit features 0..4 of every slot, largest diff over
+    features 5..n_feat-1, step-count mismatches)."""
     flip = ((kernel.captured != plain.captured) | (kernel.escaped != plain.escaped)
             | (kernel.hit_count != plain.hit_count))
     n_flip = int(flip.sum())
     agree = ~flip
-    err = float((kernel.escape_dir - plain.escape_dir).abs()[agree].max())
-    for k in range(kernel.hits.shape[0]):
-        sel = agree & (plain.hit_count > k)
-        if bool(sel.any()):
-            err = max(err, float((kernel.hits[k, :5][:, sel]
-                                  - plain.hits[k, :5][:, sel]).abs().max()))
-    return n_flip, n_flip / flip.numel(), err
+    diff = (kernel.hits[:, :n_feat] - plain.hits[:, :n_feat]).abs()[..., agree]
+    err = max(float((kernel.escape_dir - plain.escape_dir).abs()[agree].max()),
+              float(diff[:, :5].max()))
+    small_err = float(diff[:, 5:].max())
+    step_diff = 0
+    if plain.steps is not None:
+        step_diff = int((kernel.steps != plain.steps).sum())
+    return n_flip, n_flip / flip.numel(), err, small_err, step_diff
 
 
-def trace_pair(w, h, fov, tilt, h_base, r_escape, r_inner, r_outer, reps):
-    """Kernel and plain version on the same camera tensor on the card."""
+def trace_pair(name, w, h, fov, tilt, h_base, r_escape, r_inner, r_outer, reps):
+    """Kernel ``name`` and its plain version on the same camera tensor on
+    the card -> (kernel, plain, kernel ms, plain ms, comparison)."""
     from bhr_tpu_torch.camera import build_camera
-    from bhr_tpu_torch.ops.geodesic import primary_rays_from_params, trace_geodesics
+    from bhr_tpu_torch.ops.geodesic import (
+        primary_differentials_from_params,
+        primary_rays_from_params,
+        trace_geodesics,
+    )
     from bhr_tpu_torch.ops.geodesic_cuda import camera_params, trace_geodesics_cuda
 
     cam = torch.as_tensor(camera_params(build_camera(POV, fov, w, h)), device="cuda")
     kw = dict(h_base=h_base, r_escape=r_escape, tilt_deg=tilt, r_inner=r_inner,
-              r_outer=r_outer)
+              r_outer=r_outer, **VARIANTS[name])
     trace_geodesics_cuda(cam, width=w, height=h, **kw)  # warm-up
-    kernel, k_ms = cuda_ms(lambda: trace_geodesics_cuda(cam, width=w, height=h, **kw), reps)
-    plain, p_ms = cuda_ms(lambda: trace_geodesics(
-        cam[0:3], primary_rays_from_params(cam, w, h), **kw))
-    return kernel, plain, k_ms, p_ms
+    kernel, k_ms = cuda_ms(lambda: trace_geodesics_cuda(cam, width=w, height=h, **kw),
+                           reps)
+
+    def plain_fn():
+        dirs = primary_rays_from_params(cam, w, h)
+        ddx, ddy = primary_differentials_from_params(cam, w, h, dirs)
+        return trace_geodesics(cam[0:3], dirs, d_dir_dx0=ddx, d_dir_dy0=ddy, **kw)
+
+    plain, p_ms = cuda_ms(plain_fn)
+    n_feat = 12 if kw.get("with_differentials") else 11
+    return kernel, plain, k_ms, p_ms, compare(kernel, plain, n_feat)
+
+
+def check_pair(tag, name, result):
+    kernel, plain, k_ms, p_ms, (n_flip, frac, err, small_err, step_diff) = result
+    say(f"[kernel-vs-plain {tag}] {name}: flipped rays {n_flip} ({frac:.3%}) "
+        f"max float diff {err:.3e} (features 5.. {small_err:.3e}) "
+        f"step-count mismatches {step_diff}; "
+        f"kernel {k_ms:.3f} ms plain {p_ms:.3f} ms")
+    check(frac <= TOL_FLIP_FRAC, f"{tag} {name}: {n_flip} rays change category")
+    check(err <= TOL_FLOAT, f"{tag} {name}: float diff {err} > {TOL_FLOAT}")
+    check(small_err == 0.0, f"{tag} {name}: features 5.. differ by {small_err}")
+    check(step_diff == 0, f"{tag} {name}: {step_diff} step counts differ")
+    if "nodisk" in name:
+        check(not bool(kernel.hits.any()) and not bool(kernel.hit_count.any()),
+              f"{tag} {name}: hits recorded without a disk")
+    check((kernel.steps is not None) == name.endswith("_steps"),
+          f"{tag} {name}: steps output")
+
+
+def expect_launches(counts: dict, name: str, what: str) -> None:
+    others = {k: v for k, v in counts.items() if k != name and v}
+    check(counts[name] == 1 and not others,
+          f"{what} launched {counts}, expected {name} exactly once")
+
+
+def stage_times(cfg, frames: int = 4):
+    """Median ms per stage over frames 1.. (frame 0 warms up) with CUDA
+    events, and the last frame."""
+    from bhr_tpu_torch.config import escape_radius
+    from bhr_tpu_torch.modes import _make_renderer
+
+    renderer, dynamic = _make_renderer(cfg)
+    r_escape = escape_radius(cfg.r_max, cfg.pov)
+    stages = {"disk_texture": [], "trace": [], "shade": [], "post": []}
+    frame = None
+    for i in range(frames):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        renderer.update_disk_texture(dynamic.advance(t=0.0, dt=0.0, recompute_stats=True))
+        ev[1].record()
+        camera = renderer.camera(cfg.pov, cfg.fov)
+        trace = renderer.trace(camera, r_escape, cfg.use_ray_differentials)
+        ev[2].record()
+        bg, disk = renderer.shade(trace, camera, 0, cfg.use_ray_differentials)
+        ev[3].record()
+        frame = renderer.post(bg, disk, True, cfg.lens_flare)[0]
+        ev[4].record()
+        torch.cuda.synchronize()
+        if i:
+            for j, name in enumerate(stages):
+                stages[name].append(ev[j].elapsed_time(ev[j + 1]))
+    return {k: statistics.median(v) for k, v in stages.items()}, frame
 
 
 def main() -> int:
@@ -111,8 +206,17 @@ def main() -> int:
     import bhr_tpu_torch.cli as cli
     from bhr_tpu_torch import _build
     from bhr_tpu_torch.config import SceneConfig, escape_radius
-    from bhr_tpu_torch.modes import _make_renderer, render_image
-    from bhr_tpu_torch.ops.geodesic_cuda import trace_geodesics_cuda
+    from bhr_tpu_torch.models.skybox import load_or_generate_skybox
+    from bhr_tpu_torch.modes import render_image
+    from bhr_tpu_torch.ops.geodesic_cuda import KERNELS, kernel_name, trace_geodesics_cuda
+    from bhr_tpu_torch.pipeline import Renderer
+
+    launches = trace_geodesics_cuda.launches  # per instantiation
+
+    def reset_counts():
+        launches.update(dict.fromkeys(launches, 0))
+
+    check(sorted(KERNELS) == sorted(VARIANTS), f"kernels {KERNELS}")
 
     # 1. the card
     smi = subprocess.run(
@@ -129,98 +233,144 @@ def main() -> int:
     say(f"[build] ray_march: {time.perf_counter() - t0:.2f} s "
         f"(nvcc {built.seconds:.2f} s) -> {os.path.relpath(built.path, ROOT)}")
     for line in built.log.splitlines():
-        if "registers" in line or "spill" in line:
+        # ray_march<kDiff, kRecord, kSteps> mangles as ray_marchILb?ELb?ELb?E.
+        entry = re.search(r"entry function .*ray_marchILb([01])ELb([01])ELb([01])E", line)
+        if entry:
+            diff, record, steps = (c == "1" for c in entry.groups())
+            say("[build] ptxas: instantiation " + kernel_name(
+                with_differentials=diff, record_hits=record, record_step_counts=steps))
+        elif "registers" in line or "spill" in line:
             say(f"[build] ptxas: {line.strip()}")
 
     # 3. kernel vs plain at the small shapes
-    small = {}
-    for name, args, reps in (
+    for tag, args, reps in (
         ("128x32", (128, 32, 60.0, 15.0, 0.2, 12.04, 2.0, 3.5), 20),
         ("320x180", (320, 180, 60.0, 15.0, 0.1, escape_radius(10.0, POV), 2.0, 3.5), 20),
     ):
-        kernel, plain, k_ms, p_ms = trace_pair(*args, reps)
-        n_flip, frac, err = compare(kernel, plain)
-        small[name] = (k_ms, p_ms)
-        say(f"[kernel-vs-plain {name}] flipped rays {n_flip} ({frac:.3%}) "
-            f"max float diff {err:.3e}; kernel {k_ms:.3f} ms plain {p_ms:.3f} ms")
-        check(frac <= TOL_FLIP_FRAC, f"{name}: {n_flip} rays change category")
-        check(err <= TOL_FLOAT, f"{name}: float diff {err} > {TOL_FLOAT}")
+        for name in KERNELS:
+            check_pair(tag, name, trace_pair(name, *args, reps))
 
-    # 4. the golden scene on CUDA through the main path's entry point
-    trace_geodesics_cuda.launches = 0
-    img = render_image(SceneConfig(device="cuda", **GOLDEN))
-    golden_launches = trace_geodesics_cuda.launches
-    golden = np.load(os.path.join(ROOT, "tests", "goldens", "e2e_cpu.npz"))["image"]
-    diff = np.abs(img.astype(np.float64) - golden.astype(np.float64))
-    h, w = 180, 320
-    center = img[h // 2 - 16: h // 2 + 16, w // 2 - 16: w // 2 + 16]
-    say(f"[golden] vs e2e_cpu.npz max {diff.max():.3e} mean {diff.mean():.3e}; "
-        f"kernel launches {golden_launches}")
-    check(img.shape == (180, 320, 3) and np.isfinite(img).all(), "golden shape/finite")
-    check(diff.max() <= 5e-2 and diff.mean() <= 5e-4, "golden outside bounds")
-    check(golden_launches == 1, f"golden frame launched the kernel {golden_launches}x")
-    check((center.sum(axis=-1) < 0.05).mean() > 0.5, "golden: no dark shadow")
-    check(img.max() > 0.5 and (img.sum(axis=-1) > 0.02).mean() > 0.05,
-          "golden: no bright ring")
+    # 4. the golden scenes on CUDA through the main path's entry point
+    images = {}
+    for scene, (extra, expected) in SCENES.items():
+        reset_counts()
+        img = render_image(SceneConfig(device="cuda", **{**GOLDEN, **extra}))
+        launched = dict(launches)
+        suffix = "" if scene == "default" else f"_{scene}"
+        golden = np.load(os.path.join(ROOT, "tests", "goldens",
+                                      f"e2e_cpu{suffix}.npz"))["image"]
+        diff = np.abs(img.astype(np.float64) - golden.astype(np.float64))
+        h, w = 180, 320
+        center = img[h // 2 - 16: h // 2 + 16, w // 2 - 16: w // 2 + 16]
+        say(f"[golden {scene}] vs e2e_cpu{suffix}.npz max {diff.max():.3e} "
+            f"mean {diff.mean():.3e}; {expected} launches {launched[expected]}")
+        check(img.shape == (180, 320, 3) and np.isfinite(img).all(),
+              f"golden {scene} shape/finite")
+        check(diff.max() <= 5e-2 and diff.mean() <= 5e-4,
+              f"golden {scene} outside bounds")
+        expect_launches(launched, expected, f"golden {scene}")
+        check(img.max() > 0.5 and (img.sum(axis=-1) > 0.02).mean() > 0.05,
+              f"golden {scene}: no bright ring")
+        if extra.get("lens_flare"):
+            # The flare lifts pixels across the frame (the shadow too) and
+            # never darkens one.
+            lift = img - images["default"]
+            check(bool((lift >= -1e-6).all()) and (lift.max(axis=-1) > 1e-3).mean() > 0.05,
+                  f"golden {scene}: no flare over the default frame")
+        else:
+            check((center.sum(axis=-1) < 0.05).mean() > 0.5,
+                  f"golden {scene}: no dark shadow")
+        images[scene] = img
 
-    # 5. the main path at full width: the default FHD frame via the CLI
-    out_png = os.path.join("output", "torch_fhd.png")
-    trace_geodesics_cuda.launches = 0
-    t0 = time.perf_counter()
-    check(cli.main(["-r", "fhd", "-o", out_png]) == 0, "CLI exit code")
-    main_launches = trace_geodesics_cuda.launches
-    say(f"[fhd-cli] wrote {out_png} ({os.path.getsize(out_png)} bytes) in "
-        f"{time.perf_counter() - t0:.2f} s; kernel launches {main_launches}")
-    check(main_launches == 1, f"FHD frame launched the kernel {main_launches}x")
+    # 5. the main paths at full width
+    path_launches = {}
+
+    def cli_frame(tag, flags, expected):
+        out_png = os.path.join("output", f"torch_fhd_{tag}.png")
+        reset_counts()
+        t0 = time.perf_counter()
+        check(cli.main(["-r", "fhd", *flags, "-o", out_png]) == 0, "CLI exit code")
+        launched = dict(launches)
+        say(f"[fhd-cli {tag}] {' '.join(flags) or '(defaults)'}: wrote {out_png} "
+            f"({os.path.getsize(out_png)} bytes) in {time.perf_counter() - t0:.2f} s; "
+            f"{expected} launches {launched[expected]}")
+        expect_launches(launched, expected, f"FHD {tag} frame")
+        path_launches[expected] = launched[expected]
+
+    cli_frame("default", [], "ray_march_slim")
+    aa_flags = ["--anti_alias", "lod_radius", "--aa_strength", "1.0", "--lens_flare"]
+    cli_frame("aa_flare", aa_flags, "ray_march_aa")
 
     cfg = SceneConfig(resolution="fhd", device="cuda").validated()
-    renderer, dynamic = _make_renderer(cfg)
+    aa_cfg = cli.config_from_args(cli.build_parser().parse_args(
+        ["-r", "fhd", *aa_flags]))
     r_escape = escape_radius(cfg.r_max, cfg.pov)
-    stages = {"disk_texture": [], "trace": [], "shade": [], "post": []}
-    frame = None
-    for i in range(4):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
-        torch.cuda.synchronize()
-        ev[0].record()
-        renderer.update_disk_texture(dynamic.advance(t=0.0, dt=0.0, recompute_stats=True))
-        ev[1].record()
-        camera = renderer.camera(cfg.pov, cfg.fov)
-        trace = renderer.trace(camera, r_escape)
-        ev[2].record()
-        bg, disk = renderer.shade(trace, camera)
-        ev[3].record()
-        frame = renderer.post(bg, disk)[0]
-        ev[4].record()
-        torch.cuda.synchronize()
-        if i:  # frame 0 is the warm-up
-            for j, name in enumerate(stages):
-                stages[name].append(ev[j].elapsed_time(ev[j + 1]))
-    med = {k: statistics.median(v) for k, v in stages.items()}
-    check(bool(torch.isfinite(frame).all()) and frame.shape == (1080, 1920, 3),
-          "FHD frame not finite or wrong shape")
-    say("[fhd-frame] median ms over 3 frames: " + ", ".join(
-        f"{k} {v:.3f}" for k, v in med.items()) + f"; total {sum(med.values()):.3f}")
+    for tag, c in (("default", cfg), ("aa_flare", aa_cfg)):
+        med, frame = stage_times(c)
+        check(bool(torch.isfinite(frame).all()) and frame.shape == (1080, 1920, 3),
+              f"FHD {tag} frame not finite or wrong shape")
+        say(f"[fhd-frame {tag}] median ms over 3 frames: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in med.items()) + f"; total {sum(med.values()):.3f}")
 
-    kernel, plain, k_ms, p_ms = trace_pair(
-        1920, 1080, cfg.fov, cfg.disk_tilt, cfg.step_size, r_escape,
-        cfg.disk_inner_radius, cfg.disk_outer_radius, 3)
-    n_flip, frac, fhd_err = compare(kernel, plain)
-    say(f"[kernel-vs-plain 1920x1080] flipped rays {n_flip} ({frac:.3%}) max "
-        f"float diff {fhd_err:.3e}; kernel {k_ms:.3f} ms plain {p_ms:.3f} ms")
-    check(frac <= TOL_FLIP_FRAC, f"FHD: {n_flip} rays change category")
-    check(fhd_err <= TOL_FLOAT, f"FHD: float diff {fhd_err} > {TOL_FLOAT}")
+    # A scene without a disk texture: lensing of the sky only.
+    skybox, _, _ = load_or_generate_skybox(None, 2048, 1024, cfg.n_stars,
+                                           seed=cfg.skybox_seed)
+    nodisk = Renderer(cfg, skybox, None)
+    reset_counts()
+    sky_frame = nodisk.render(cfg.pov, cfg.fov)
+    launched = dict(launches)
+    say(f"[fhd-nodisk] Renderer without a disk texture: frame mean "
+        f"{sky_frame.mean():.4f}; ray_march_nodisk launches "
+        f"{launched['ray_march_nodisk']}")
+    check(np.isfinite(sky_frame).all() and sky_frame.shape == (1080, 1920, 3),
+          "FHD no-disk frame")
+    expect_launches(launched, "ray_march_nodisk", "FHD no-disk frame")
+    path_launches["ray_march_nodisk"] = launched["ray_march_nodisk"]
+
+    # Every instantiation vs its plain version at FHD. The step-count
+    # instantiations run on no frame's path: their path is this
+    # diagnostic, counted over its timed kernel runs (warm-up + 3).
+    fhd, steps = {}, {}
+    for name in KERNELS:
+        reset_counts()
+        res = trace_pair(name, 1920, 1080, cfg.fov, cfg.disk_tilt, cfg.step_size,
+                         r_escape, cfg.disk_inner_radius, cfg.disk_outer_radius, 3)
+        launched = dict(launches)
+        check_pair("1920x1080", name, res)
+        others = {k: v for k, v in launched.items() if k != name and v}
+        check(launched[name] == 4 and not others,
+              f"FHD {name} pair launched {launched}, expected {name} 4 times")
+        fhd[name] = res[2:]
+        if name.endswith("_steps"):
+            path_launches[name] = launched[name]
+            steps[name] = res[0].steps.to(torch.float64)
+        del res
+
+    for name, s in steps.items():
+        base = name.removesuffix("_steps")
+        total = float(s.sum())
+        # A warp is an 8x4 pixel patch (8x16 blocks) and runs as long as
+        # its longest ray: the share of its lane-steps that are useful.
+        warp_max = s.reshape(1080 // 4, 4, 1920 // 8, 8).amax(dim=(1, 3))
+        lanes = total / (32 * float(warp_max.sum()))
+        say(f"[fhd-steps] {name}: mean {float(s.mean()):.2f} p99 "
+            f"{float(torch.quantile(s, 0.99)):.0f} max {int(s.max())} steps/ray; "
+            f"warp lane efficiency {lanes:.4f}; "
+            f"{total:.4e} ray-steps; {total / (fhd[base][0] * 1e-3):.4e} useful "
+            f"ray-steps/s of {base} kernel time ({fhd[base][0]:.3f} ms), "
+            f"{total / (fhd[name][0] * 1e-3):.4e} of its own ({fhd[name][0]:.3f} ms)")
 
     # 6. results
     say(json.dumps({"kernels": [{
-        "name": "ray_march_slim",
+        "name": name,
         "route": "cuda",
         "source": "bhr_tpu_torch/csrc/ray_march.cu",
-        "replaces": "bhr_tpu/ops/geodesic_pallas.py:582",
-        "launches": main_launches,
-        "max_abs_err": fhd_err,
-        "ms": k_ms,
-        "plain_ms": p_ms,
-    }]}))
+        "replaces": REPLACES,
+        "launches": path_launches[name],
+        "max_abs_err": max(fhd[name][2][2], fhd[name][2][3]),
+        "ms": fhd[name][0],
+        "plain_ms": fhd[name][1],
+    } for name in KERNELS]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

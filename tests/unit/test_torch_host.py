@@ -55,11 +55,14 @@ def test_port_imports_no_jax():
 
 
 @pytest.mark.parametrize("kwargs", [{}, _GOLDEN, {"resolution": "sd",
-                                                   "disk_tilt": 30.0}])
+                                                   "disk_tilt": 30.0},
+                                    {"anti_alias": "lod_radius", "lens_flare": True,
+                                     "aa_strength": 1.5}])
 def test_scene_config_matches(kwargs):
     j = jcfg.SceneConfig(**kwargs).validated()
     t = tcfg.SceneConfig(device="cpu", **kwargs).validated()
     assert {k: getattr(t, k) for k in _SHARED} == {k: getattr(j, k) for k in _SHARED}
+    assert t.use_ray_differentials == j.use_ray_differentials
     assert t.image_size == j.image_size
     assert tcfg.scene_escape_radius(t) == jcfg.scene_escape_radius(j)
     assert tcfg.SceneConfig().device == "cuda"
@@ -69,6 +72,7 @@ def test_scene_config_matches(kwargs):
     {"fov": 190.0}, {"pov": (0.5, 0.0, 0.0)}, {"width": 64},
     {"disk_inner_radius": 5.0, "disk_outer_radius": 4.0},
     {"step_size": 0.0}, {"resolution": "8k"}, {"device": "tpu"},
+    {"aa_strength": 0.4}, {"aa_strength": 2.5},
 ])
 def test_scene_config_rejects_bad_values(bad):
     with pytest.raises(ValueError):

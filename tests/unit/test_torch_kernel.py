@@ -6,16 +6,38 @@ machine run them with ``python -m pytest tests/unit/test_torch_kernel.py``;
 ``chip_smoke.py`` makes the same check at the main path's shapes.
 
 The kernel is built with -fmad=false and follows the plain version's
-operation order, so categorical outputs must match exactly and float
-outputs within 2e-3 (they are expected to agree bit for bit).
+operation order, so categorical outputs and step counts must match
+exactly. The escape direction and hit features 0..4 (position and
+direction, of order 1) must agree within 2e-3; they are expected to
+agree bit for bit. The AA variant's features 5..11 (the differentials,
+of the order of a pixel's angle, ~1e-3 and below, and t_frac) must be
+equal: a bound of 2e-3 would pass a kernel that got them wrong. The slim
+variant's feature 11 is 0 in the kernel (as in the Pallas slim kernel)
+and t_frac in the plain version (as in bhr_tpu's pure-JAX tracer), so
+it is left out; the slim and no-disk kernels leave 5..11 zero, and the
+no-disk variant's hits are all zero.
 """
 
 import pytest
 import torch
 
 from bhr_tpu_torch.camera import build_camera
-from bhr_tpu_torch.ops.geodesic import primary_rays_from_params, trace_geodesics
-from bhr_tpu_torch.ops.geodesic_cuda import camera_params, trace_geodesics_cuda
+from bhr_tpu_torch.ops.geodesic import (
+    primary_differentials_from_params,
+    primary_rays_from_params,
+    trace_geodesics,
+)
+from bhr_tpu_torch.ops.geodesic_cuda import (
+    camera_params,
+    kernel_name,
+    trace_geodesics_cuda,
+)
+
+VARIANTS = {
+    "slim": {},
+    "aa": {"with_differentials": True},
+    "nodisk": {"record_hits": False},
+}
 
 
 @pytest.fixture
@@ -26,18 +48,38 @@ def cuda_device():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("steps", [False, True])
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
 @pytest.mark.parametrize("w,h,tilt", [(128, 32, 15.0), (128, 48, 40.0)])
-def test_kernel_matches_plain_version(cuda_device, w, h, tilt):
+def test_kernel_matches_plain_version(cuda_device, w, h, tilt, variant, steps):
     cam = torch.as_tensor(camera_params(build_camera([6.0, 0.0, 0.5], 60.0, w, h)),
                           device=cuda_device)
-    kw = dict(h_base=0.2, r_escape=12.04, tilt_deg=tilt, r_inner=2.0, r_outer=3.5)
-    before = trace_geodesics_cuda.launches
+    kw = dict(h_base=0.2, r_escape=12.04, tilt_deg=tilt, r_inner=2.0, r_outer=3.5,
+              record_step_counts=steps, **VARIANTS[variant])
+    name = kernel_name(with_differentials=kw.get("with_differentials", False),
+                       record_hits=kw.get("record_hits", True),
+                       record_step_counts=steps)
+    before = dict(trace_geodesics_cuda.launches)
     kernel = trace_geodesics_cuda(cam, width=w, height=h, **kw)
     torch.cuda.synchronize()
-    assert trace_geodesics_cuda.launches == before + 1
-    plain = trace_geodesics(cam[0:3], primary_rays_from_params(cam, w, h), **kw)
-    for name in ("captured", "escaped", "hit_count"):
-        assert torch.equal(getattr(kernel, name), getattr(plain, name)), name
+    assert trace_geodesics_cuda.launches[name] == before[name] + 1
+    assert sum(trace_geodesics_cuda.launches.values()) == sum(before.values()) + 1
+
+    dirs = primary_rays_from_params(cam, w, h)
+    ddx, ddy = primary_differentials_from_params(cam, w, h, dirs)
+    plain = trace_geodesics(cam[0:3], dirs, d_dir_dx0=ddx, d_dir_dy0=ddy, **kw)
+    for field in ("captured", "escaped", "hit_count"):
+        assert torch.equal(getattr(kernel, field), getattr(plain, field)), field
     torch.testing.assert_close(kernel.escape_dir, plain.escape_dir, rtol=0, atol=2e-3)
-    torch.testing.assert_close(kernel.hits[:, :5], plain.hits[:, :5], rtol=0, atol=2e-3)
-    assert bool((kernel.hits[:, 5:] == 0).all())
+    torch.testing.assert_close(kernel.hits[:, :5], plain.hits[:, :5], rtol=0,
+                               atol=2e-3)
+    if variant == "aa":
+        assert torch.equal(kernel.hits[:, 5:], plain.hits[:, 5:])
+    else:
+        assert bool((kernel.hits[:, 5:] == 0).all())
+    if variant == "nodisk":
+        assert not bool(kernel.hits.any()) and not bool(kernel.hit_count.any())
+    if steps:
+        assert torch.equal(kernel.steps, plain.steps)
+    else:
+        assert kernel.steps is None

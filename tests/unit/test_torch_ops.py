@@ -2,10 +2,12 @@
 
 Inputs are made with NumPy from a seed and fed to both packages. The
 JAX side runs its own CPU path (textures quad-packed in f32, as off the
-TPU). Tolerances: 1e-5 absolute for the elementwise and sampling ops
-(XLA contracts multiply-adds into FMAs on the CPU, torch does not, so
-results differ in the last bits); the histogram quantiles return the
-same bin edge exactly.
+TPU; the mip pyramid as the quad-packed mip atlas its Renderer builds).
+Tolerances: 1e-5 absolute for the elementwise and sampling ops (XLA
+contracts multiply-adds into FMAs on the CPU, torch does not, so results
+differ in the last bits); 1e-3 for the lens flare, whose light position
+is a brightness-weighted sum over the whole image (summation order
+differs); the histogram quantiles return the same bin edge exactly.
 """
 
 import jax.numpy as jnp
@@ -15,6 +17,7 @@ import torch
 
 from bhr_tpu.ops import bloom as jbloom
 from bhr_tpu.ops import fastmath as jfm
+from bhr_tpu.ops import lens_flare as jflare
 from bhr_tpu.ops import noise as jnoise
 from bhr_tpu.ops import sampling as jsamp
 from bhr_tpu.ops import shading as jshade
@@ -22,6 +25,7 @@ from bhr_tpu.ops import stats as jstats
 
 from bhr_tpu_torch.ops import bloom as tbloom
 from bhr_tpu_torch.ops import fastmath as tfm
+from bhr_tpu_torch.ops import lens_flare as tflare
 from bhr_tpu_torch.ops import noise as tnoise
 from bhr_tpu_torch.ops import sampling as tsamp
 from bhr_tpu_torch.ops import shading as tshade
@@ -80,6 +84,76 @@ def test_disk_sampler_matches(t_offset):
     ref = jsamp.sample_disk_quad(jsamp.pack_quad(jnp.asarray(tex)), jnp.asarray(hx),
                                  jnp.asarray(hy), 2.0, 3.5, t_offset)
     _close(tsamp.sample_disk(_t(tex), _t(hx), _t(hy), 2.0, 3.5, t_offset), ref)
+
+
+def _disk_hits(rng, n):
+    """Hits inside, below (v < 0) and beyond (v clamps) the 2-3.5 annulus."""
+    r = rng.uniform(1.5, 4.0, n).astype(np.float32)
+    phi = rng.uniform(-np.pi, np.pi, n).astype(np.float32)
+    return (r * np.cos(phi)).astype(np.float32), (r * np.sin(phi)).astype(np.float32)
+
+
+@pytest.mark.parametrize("layout,shape,t_offset", [
+    ("atlas", (32, 96), 0.0), ("atlas", (32, 96), 0.7),
+    ("quad_pyramid", (36, 100), 0.3),
+])
+def test_disk_mip_sampler_matches(layout, shape, t_offset):
+    rng = np.random.default_rng(11)
+    tex = rng.random(shape + (4,)).astype(np.float32)
+    hx, hy = _disk_hits(rng, 6000)
+    # LODs below 0, above the top level, on level boundaries and between.
+    lod = np.concatenate([rng.uniform(-0.5, 5.0, 5990),
+                          [0.0, 1.0, 2.0, 3.0, 4.0, 0.999, 1.999, 2.5, -1.0, 9.0]]
+                         ).astype(np.float32)
+    jmips = jsamp.build_mipmaps(jnp.asarray(tex), levels=4)
+    n_levels = int(jmips.shape[0])
+    args = (jnp.asarray(hx), jnp.asarray(hy), 2.0, 3.5, t_offset, jnp.asarray(lod))
+    if layout == "atlas":  # what bhr_tpu's Renderer samples off the TPU
+        ref = jsamp.sample_disk_mip_atlas(
+            jsamp.pack_mip_atlas_from_pyramid(jmips, jnp.float32), n_levels, *args)
+    else:  # sizes not divisible by 2^levels: the padded quad pyramid
+        ref = jsamp.sample_disk_mip_quad(jsamp.pack_quad_mips(jmips), n_levels, *args)
+    mips = tsamp.build_mipmaps(_t(tex), levels=4)
+    assert mips.shape[0] == n_levels
+    out = tsamp.sample_disk_mip(mips, n_levels, _t(hx), _t(hy), 2.0, 3.5, t_offset,
+                                _t(lod))
+    _close(out, ref)
+    # LOD 0 everywhere is the level-0 sampler.
+    zero = torch.zeros(6000)
+    _close(tsamp.sample_disk_mip(mips, n_levels, _t(hx), _t(hy), 2.0, 3.5, t_offset,
+                                 zero),
+           tsamp.sample_disk(_t(tex), _t(hx), _t(hy), 2.0, 3.5, t_offset).numpy())
+
+
+def _flare_images(seed, h=90, w=160, dark=False):
+    rng = np.random.default_rng(seed)
+    final = rng.random((h, w, 3)).astype(np.float32)
+    disk = np.zeros((h, w, 3), np.float32)
+    if not dark:
+        # A bright off-center blob as the light, centered between pixels:
+        # at the light's own pixel the streak angle is atan2 of rounding
+        # noise.
+        ys, xs = np.mgrid[0:h, 0:w]
+        blob = np.exp(-((xs - 0.3 * w - 0.37) ** 2 + (ys - 0.6 * h - 0.21) ** 2)
+                      / 60.0)
+        disk = (blob[..., None] * rng.uniform(0.5, 1.0, 3)).astype(np.float32)
+    else:
+        disk[3, 5] = 0.001  # below the 0.01 guard
+    return final, disk
+
+
+@pytest.mark.parametrize("seed,shape,dark", [
+    (12, (90, 160), False), (13, (64, 48), False), (14, (90, 160), True),
+])
+def test_lens_flare_matches(seed, shape, dark):
+    final, disk = _flare_images(seed, *shape, dark=dark)
+    out = tflare.apply_lens_flare(_t(final), _t(disk))
+    ref = jflare.apply_lens_flare(jnp.asarray(final), jnp.asarray(disk))
+    _close(out, ref, atol=1e-3)
+    if dark:
+        np.testing.assert_array_equal(out.numpy(), final)
+    else:
+        assert float((out - _t(final)).abs().max()) > 0.05  # the flare shows
 
 
 def test_build_mipmaps_matches():

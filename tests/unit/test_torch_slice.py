@@ -1,13 +1,17 @@
 """The port's still-frame slice vs bhr_tpu, end to end on the CPU.
 
 * ``shade_frame`` on a trace made by JAX (passed in through
-  ``interop``) against ``bhr_tpu.pipeline.shade_frame``: atol 1e-4.
-* A whole ``Renderer`` frame over identical NumPy assets: atol 1e-3.
+  ``interop``) against ``bhr_tpu.pipeline.shade_frame``, with level-0
+  sampling and with the AA mip-LOD branch: atol 1e-4.
+* A whole ``Renderer`` frame over identical NumPy assets — default, AA
+  with lens flare, and without a disk texture: atol 1e-3.
 * The golden default scene rendered by ``modes.render_image`` against
   ``tests/goldens/e2e_cpu.npz`` (what bhr_tpu renders on the CPU),
   within the cross-backend bounds of ``tests/e2e_render.py``: max
-  |diff| <= 5e-2 and mean <= 5e-4.
-* The CLI writes a PNG; every unported feature raises.
+  |diff| <= 5e-2 and mean <= 5e-4 (the AA and flare goldens are in
+  ``test_torch_aa.py``).
+* The CLI writes a PNG, with AA and lens flare too; every unported
+  feature raises.
 """
 
 import os
@@ -24,11 +28,17 @@ import bhr_tpu.config as jcfg
 from bhr_tpu import pipeline as jpipe
 from bhr_tpu.camera import build_camera
 from bhr_tpu.ops import geodesic as jgeo
-from bhr_tpu.ops.sampling import build_mipmaps, pack_quad, pack_quad_mips
+from bhr_tpu.ops.sampling import (
+    build_mipmaps,
+    pack_mip_atlas_from_pyramid,
+    pack_quad,
+    pack_quad_mips,
+)
 
 from bhr_tpu_torch import cli, interop
 from bhr_tpu_torch.config import SceneConfig
 from bhr_tpu_torch.modes import render_image
+from bhr_tpu_torch.ops.sampling import build_mipmaps as t_build_mipmaps
 from bhr_tpu_torch.pipeline import shade_frame
 from bhr_tpu_torch.utils.io import quantize_frame
 
@@ -41,8 +51,11 @@ GOLDEN_SCENE = dict(width=320, height=180, pov=(6.0, 0.0, 0.5), fov=60.0,
                     disk_tilt=15.0, anti_alias="disabled", seed=42)
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _few_threads():
+    # Module scope: autouse fixtures of a scope run before the other
+    # fixtures of that scope, so the module-scoped golden render runs
+    # with few threads too (many threads per test worker contend).
     prev = torch.get_num_threads()
     torch.set_num_threads(2)
     yield
@@ -74,12 +87,49 @@ def test_shade_frame_matches_on_jax_trace():
         image_shape=(h, w), **kw)
     port_trace = interop.trace_result_from_numpy(
         *(np.asarray(x) for x in trace[:5]))
-    out = shade_frame(port_trace, torch.as_tensor(sky), torch.as_tensor(tex),
+    out = shade_frame(port_trace, torch.as_tensor(sky), torch.as_tensor(tex)[None],
                       torch.as_tensor(cam.pos), **kw)
     for o, r in zip(out, ref):
         np.testing.assert_allclose(o.numpy(), np.asarray(r), rtol=0, atol=1e-4)
     back = interop.trace_result_to_numpy(port_trace)
     np.testing.assert_array_equal(back[3], np.asarray(trace.hit_count))
+    assert back[5] is None  # no step counts in this trace
+
+
+@pytest.mark.parametrize("aa_strength", [1.0, 2.0])
+def test_shade_frame_lod_matches_on_jax_aa_trace(aa_strength):
+    w, h = 96, 48
+    sky, tex = _assets(1)
+    cam = build_camera([6.0, 0.0, 0.5], 60.0, w, h)
+    dirs, ddx, ddy = jgeo.primary_rays(cam)
+    trace = jgeo.trace_geodesics(jnp.asarray(cam.pos), dirs, d_dir_dx0=ddx,
+                                 d_dir_dy0=ddy, with_differentials=True,
+                                 record_step_counts=True, h_base=0.2,
+                                 r_escape=12.04, tilt_deg=15.0, r_inner=2.0,
+                                 r_outer=3.5)
+    assert int(np.asarray(trace.hit_count).max()) >= 2  # ghost slots shade too
+    kw = dict(r_inner=2.0, r_outer=3.5, tilt_deg=15.0, t_offset=0.3)
+    jmips = build_mipmaps(jnp.asarray(tex), levels=4)
+    # bhr_tpu's Renderer samples the mip atlas for LOD renders.
+    ref = jpipe.shade_frame(
+        trace, pack_quad(jnp.asarray(sky)),
+        pack_mip_atlas_from_pyramid(jmips, jnp.float32), int(jmips.shape[0]),
+        jnp.asarray(cam.pos), use_lod=True, aa_strength=aa_strength,
+        image_shape=(h, w), **kw)
+    port_trace = interop.trace_result_from_numpy(*(np.asarray(x) for x in trace))
+    assert port_trace.steps.dtype == torch.int32
+    mips = t_build_mipmaps(torch.as_tensor(tex), levels=4)
+    out = shade_frame(port_trace, torch.as_tensor(sky), mips,
+                      torch.as_tensor(cam.pos), use_lod=True,
+                      aa_strength=aa_strength, **kw)
+    for o, r in zip(out, ref):
+        np.testing.assert_allclose(o.numpy(), np.asarray(r), rtol=0, atol=1e-4)
+    # The LOD branch does sample coarser levels than level 0 here.
+    flat = shade_frame(port_trace, torch.as_tensor(sky), mips,
+                       torch.as_tensor(cam.pos), **kw)
+    assert float((flat[1] - out[1]).abs().max()) > 1e-3
+    back = interop.trace_result_to_numpy(port_trace)
+    np.testing.assert_array_equal(back[5], np.asarray(trace.steps))
 
 
 def _smooth_assets():
@@ -109,6 +159,38 @@ def test_renderer_frame_matches_on_same_assets():
         SceneConfig(device="cpu", **kw).validated(), sky, tex)
     out = port.render(kw["pov"], kw["fov"])
     assert out.shape == (48, 96, 3) and out.dtype == np.float32
+    np.testing.assert_allclose(out, ref, rtol=0, atol=1e-3)
+
+
+def test_renderer_aa_flare_frame_matches_on_same_assets():
+    sky, tex = _smooth_assets()
+    kw = dict(width=96, height=48, pov=(6.0, 0.0, 0.5), fov=60.0,
+              step_size=0.2, disk_inner_radius=2.0, disk_outer_radius=3.5,
+              disk_tilt=15.0, anti_alias="lod_radius", lens_flare=True)
+    ref = jpipe.Renderer(jcfg.SceneConfig(**kw).validated(), sky, tex,
+                         use_pallas=False).render(kw["pov"], kw["fov"])
+    port = interop.renderer_from_numpy(
+        SceneConfig(device="cpu", **kw).validated(), sky, tex)
+    out = port.render(kw["pov"], kw["fov"])
+    assert out.shape == (48, 96, 3) and out.dtype == np.float32
+    np.testing.assert_allclose(out, ref, rtol=0, atol=1e-3)
+    # Both switches change the frame.
+    plain = port.render(kw["pov"], kw["fov"], skip_differentials=True,
+                        lens_flare=False)
+    assert np.abs(out - plain).max() > 1e-2
+
+
+def test_renderer_frame_without_disk_matches():
+    sky, _ = _smooth_assets()
+    kw = dict(width=96, height=48, pov=(6.0, 0.0, 0.5), fov=60.0,
+              step_size=0.2, disk_inner_radius=2.0, disk_outer_radius=3.5,
+              disk_tilt=15.0, anti_alias="lod_radius")
+    ref = jpipe.Renderer(jcfg.SceneConfig(**kw).validated(), sky, None,
+                         use_pallas=False).render(kw["pov"], kw["fov"])
+    port = interop.renderer_from_numpy(
+        SceneConfig(device="cpu", **kw).validated(), sky, None)
+    assert port.disk_mips is None
+    out = port.render(kw["pov"], kw["fov"])
     np.testing.assert_allclose(out, ref, rtol=0, atol=1e-3)
 
 
@@ -173,9 +255,27 @@ def test_cli_writes_png(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags", [
+    ["--anti_alias", "lod_radius"], ["--lens_flare"],
+    ["--anti_alias", "lod_radius", "--aa_strength", "2.0", "--lens_flare"],
+])
+def test_cli_renders_ported_features(flags, tmp_path):
+    out = tmp_path / "frame.png"
+    args = ["--width", "64", "--height", "36", "--fov", "60", "--n_stars", "100",
+            "--disk_outer_radius", "3.5", "--disk_tilt", "15", "--device", "cpu",
+            "-o", str(out)] + flags
+    assert cli.main(args) == 0
+    config = cli.config_from_args(cli.build_parser().parse_args(args))
+    assert config.use_ray_differentials == ("--anti_alias" in flags)
+    assert config.lens_flare == ("--lens_flare" in flags)
+    assert config.aa_strength == (2.0 if "--aa_strength" in flags else 1.0)
+    np.testing.assert_array_equal(_read_png_rgb8(out),
+                                  quantize_frame(render_image(config)))
+
+
+@pytest.mark.parametrize("flags", [
     ["--video"], ["--interactive"], ["--disk_model", "v2"],
-    ["--anti_alias", "lod_radius"], ["--lens_flare"], ["--tile_shards", "2"],
-    ["--disk_texture", "auto"], ["--coordinator_address", "localhost:1234"],
+    ["--tile_shards", "2"], ["--disk_texture", "auto"],
+    ["--coordinator_address", "localhost:1234"],
 ])
 def test_cli_refuses_unported_features(flags, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -4,9 +4,14 @@ On the CPU, ``trace_geodesics_cuda`` routes a CPU camera tensor to the
 plain torch version; it is held against both JAX tracers — the pure-JAX
 lock-step loop and the Pallas kernel in interpret mode — on the scenes
 of ``test_pallas_parity.py``: 128x32 at tilt 15 and the 128x48 tilt-40
-gate case. As there, categorical outputs (captured, escaped, hit_count)
-must match exactly and float outputs agree within 2e-3 (escape
-direction, hit xy, hit direction).
+gate case, in every variant the port has (slim, AA, no disk, step
+counts). As there, categorical outputs (captured, escaped, hit_count)
+and step counts must match exactly and float outputs agree within 2e-3
+(escape direction, hit xy, hit direction, t_frac). The AA differentials
+(features 5..10) agree within ``test_pallas_parity.py``'s own 5e-3: XLA
+contracts multiply-adds into FMAs on the CPU, and the pure-JAX path
+starts its differentials from ``primary_rays_from_arrays``, a different
+formula from the Pallas kernel's that the port follows.
 """
 
 import jax.numpy as jnp
@@ -19,7 +24,12 @@ from bhr_tpu.ops import geodesic as jgeo
 from bhr_tpu.ops.geodesic_pallas import trace_geodesics_pallas
 
 from bhr_tpu_torch.ops import geodesic as tgeo
-from bhr_tpu_torch.ops.geodesic_cuda import camera_params, trace_geodesics_cuda
+from bhr_tpu_torch.ops.geodesic_cuda import (
+    KERNELS,
+    camera_params,
+    kernel_name,
+    trace_geodesics_cuda,
+)
 
 SCENES = {"tilt15": (128, 32, 15.0), "tilt40": (128, 48, 40.0)}
 
@@ -37,22 +47,33 @@ def _kw(tilt):
                 r_outer=3.5)
 
 
+def _jax_trace(reference, cam, w, h, **kw):
+    """bhr_tpu's trace of the camera: pure JAX (with primary_rays'
+    differentials) or the Pallas kernel in interpret mode."""
+    if reference == "pure_jax":
+        dirs, ddx, ddy = jgeo.primary_rays(cam)
+        return jgeo.trace_geodesics(jnp.asarray(cam.pos), dirs, d_dir_dx0=ddx,
+                                    d_dir_dy0=ddy, **kw)
+    return trace_geodesics_pallas(jnp.asarray(camera_params(cam)), width=w,
+                                  height=h, interpret=True, exit_check_every=1,
+                                  **kw)
+
+
+def _port_trace(cam, w, h, **kw):
+    launches = dict(trace_geodesics_cuda.launches)
+    res = trace_geodesics_cuda(torch.as_tensor(camera_params(cam)), width=w,
+                               height=h, **kw)
+    assert trace_geodesics_cuda.launches == launches  # CPU: no kernel launch
+    return res
+
+
 @pytest.mark.parametrize("reference", ["pure_jax", "pallas_interpret"])
 @pytest.mark.parametrize("scene", sorted(SCENES))
 def test_plain_trace_matches_jax(scene, reference):
     w, h, tilt = SCENES[scene]
     cam = build_camera([6.0, 0.0, 0.5], 60.0, w, h)
-    launches = trace_geodesics_cuda.launches
-    res = trace_geodesics_cuda(torch.as_tensor(camera_params(cam)),
-                               width=w, height=h, **_kw(tilt))
-    assert trace_geodesics_cuda.launches == launches  # CPU: no kernel launch
-    if reference == "pure_jax":
-        dirs, _, _ = jgeo.primary_rays(cam)
-        ref = jgeo.trace_geodesics(jnp.asarray(cam.pos), dirs, **_kw(tilt))
-    else:
-        ref = trace_geodesics_pallas(jnp.asarray(camera_params(cam)), width=w,
-                                     height=h, interpret=True,
-                                     exit_check_every=1, **_kw(tilt))
+    res = _port_trace(cam, w, h, **_kw(tilt))
+    ref = _jax_trace(reference, cam, w, h, **_kw(tilt))
 
     for name in ("captured", "escaped", "hit_count"):
         np.testing.assert_array_equal(getattr(res, name).numpy(),
@@ -93,15 +114,127 @@ def test_trace_terminates_every_ray_on_small_scene():
     assert bool((norms[~res.escaped] == 0).all())
 
 
+@pytest.mark.parametrize("reference", ["pure_jax", "pallas_interpret"])
+@pytest.mark.parametrize("scene", sorted(SCENES))
+def test_plain_aa_trace_matches_jax(scene, reference):
+    w, h, tilt = SCENES[scene]
+    cam = build_camera([6.0, 0.0, 0.5], 60.0, w, h)
+    kw = dict(_kw(tilt), with_differentials=True)
+    res = _port_trace(cam, w, h, **kw)
+    ref = _jax_trace(reference, cam, w, h, **kw)
+
+    for name in ("captured", "escaped", "hit_count"):
+        np.testing.assert_array_equal(getattr(res, name).numpy(),
+                                      np.asarray(getattr(ref, name)), err_msg=name)
+    np.testing.assert_allclose(res.escape_dir.numpy(), np.asarray(ref.escape_dir),
+                               atol=2e-3)
+    count = np.asarray(ref.hit_count)
+    hits_t, hits_j = res.hits.numpy(), np.asarray(ref.hits)
+    assert hits_t.shape == hits_j.shape == (4, 12, w * h)
+    for k in range(4):
+        sel = count > k
+        if sel.any():
+            np.testing.assert_allclose(hits_t[k, :5][:, sel], hits_j[k, :5][:, sel],
+                                       atol=2e-3)
+            np.testing.assert_allclose(hits_t[k, 5:11][:, sel],
+                                       hits_j[k, 5:11][:, sel], atol=5e-3)
+            np.testing.assert_allclose(hits_t[k, 11, sel], hits_j[k, 11, sel],
+                                       atol=2e-3)
+        np.testing.assert_array_equal(hits_t[k, :, ~sel], 0.0)
+    # The differentials are live: a one-pixel footprint on the disk.
+    assert np.abs(hits_t[0, 5:11][:, count > 0]).max() > 1e-3
+
+
+@pytest.mark.parametrize("reference", ["pure_jax", "pallas_interpret"])
 @pytest.mark.parametrize("variant", [
-    {"with_differentials": True}, {"record_step_counts": True},
-    {"row_count": 8}, {"record_hits": False}, {"row_start": 4},
+    {}, {"with_differentials": True}, {"record_hits": False},
+], ids=["slim", "aa", "nodisk"])
+def test_step_counts_match_jax(variant, reference):
+    w, h, tilt = SCENES["tilt15"]
+    cam = build_camera([6.0, 0.0, 0.5], 60.0, w, h)
+    kw = dict(_kw(tilt), record_step_counts=True, **variant)
+    res = _port_trace(cam, w, h, **kw)
+    ref = _jax_trace(reference, cam, w, h, **kw)
+    assert res.steps.dtype == torch.int32 and res.steps.shape == (w * h,)
+    np.testing.assert_array_equal(res.steps.numpy(), np.asarray(ref.steps))
+    assert int(res.steps.min()) >= 1
+    # Step counts leave every other output as it was.
+    plain = _port_trace(cam, w, h, **{**kw, "record_step_counts": False})
+    assert plain.steps is None
+    for a, b in zip(res[:5], plain[:5]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("scene", sorted(SCENES))
+def test_nodisk_trace_matches_jax(scene):
+    w, h, tilt = SCENES[scene]
+    cam = build_camera([6.0, 0.0, 0.5], 60.0, w, h)
+    kw = dict(_kw(tilt), record_hits=False)
+    res = _port_trace(cam, w, h, **kw)
+    ref = _jax_trace("pure_jax", cam, w, h, **kw)
+    for name in ("captured", "escaped", "hit_count"):
+        np.testing.assert_array_equal(getattr(res, name).numpy(),
+                                      np.asarray(getattr(ref, name)), err_msg=name)
+    np.testing.assert_allclose(res.escape_dir.numpy(), np.asarray(ref.escape_dir),
+                               atol=2e-3)
+    assert bool((res.hits == 0).all()) and bool((res.hit_count == 0).all())
+    # Lensing alone is the slim trace's: the same rays escape the same way.
+    slim = _port_trace(cam, w, h, **_kw(tilt))
+    assert torch.equal(res.escape_dir, slim.escape_dir)
+
+
+def test_primary_differentials_match_jax():
+    cam = build_camera([6.0, 0.0, 0.5], 60.0, 96, 40)
+    params = torch.as_tensor(camera_params(cam))
+    d0 = tgeo.primary_rays_from_params(params, 96, 40)
+    ddx, ddy = tgeo.primary_differentials_from_params(params, 96, 40, d0)
+    _, ref_x, ref_y = jgeo.primary_rays(cam)
+    np.testing.assert_allclose(ddx.numpy(), np.asarray(ref_x), atol=1e-6)
+    np.testing.assert_allclose(ddy.numpy(), np.asarray(ref_y), atol=1e-6)
+
+
+@pytest.mark.parametrize("variant", [
+    {"row_count": 8}, {"row_start": 4},
 ])
 def test_unported_variants_raise(variant):
     cam = build_camera([6.0, 0.0, 0.5], 60.0, 32, 16)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         trace_geodesics_cuda(torch.as_tensor(camera_params(cam)), width=32,
                              height=16, **_kw(15.0), **variant)
+
+
+@pytest.mark.parametrize("variant", [
+    {"with_differentials": True}, {"record_step_counts": True},
+    {"record_hits": False},
+])
+def test_ported_variants_run_on_cpu(variant):
+    cam = build_camera([6.0, 0.0, 0.5], 60.0, 32, 16)
+    res = trace_geodesics_cuda(torch.as_tensor(camera_params(cam)), width=32,
+                               height=16, **_kw(15.0), **variant)
+    assert bool((res.captured | res.escaped).all())
+    assert (res.steps is not None) == bool(variant.get("record_step_counts"))
+    if variant.get("record_hits") is False:
+        assert not bool(res.hits.any()) and not bool(res.hit_count.any())
+    else:
+        assert bool((res.hit_count > 0).any())
+        recorded = res.hits[0][:, res.hit_count > 0]
+        diffs_written = bool(recorded[5:11].abs().gt(0).any())
+        assert diffs_written == bool(variant.get("with_differentials"))
+
+
+@pytest.mark.parametrize("diff", [False, True])
+@pytest.mark.parametrize("record", [False, True])
+@pytest.mark.parametrize("steps", [False, True])
+def test_kernel_name_covers_every_variant(diff, record, steps):
+    name = kernel_name(with_differentials=diff, record_hits=record,
+                       record_step_counts=steps)
+    assert name in KERNELS
+    assert name.endswith("_steps") == steps
+    # AA without hit recording has nothing to write its differentials
+    # into: it is the no-disk kernel.
+    base = name.removesuffix("_steps")
+    assert base == ("ray_march_aa" if diff and record
+                    else "ray_march_slim" if record else "ray_march_nodisk")
 
 
 @pytest.mark.parametrize("cam", [
