@@ -3,16 +3,18 @@
 The port of ``bhr_tpu/cli.py`` for the single-frame mode: the same scene
 flags and defaults (reference render.py:4518-4695), plus ``--width`` /
 ``--height``, with ``--device`` choosing ``cuda`` (the default) or
-``cpu``. The switches of modes the port does not have yet (--video,
---interactive, --disk_model v2, --tile_shards, --disk_texture auto,
---coordinator_address) are parsed and refused with NotImplementedError,
-naming the ROADMAP item that ports them; those modes' own settings
-return with them.
+``cpu``. ``--tile_shards N`` renders the frame's pixel rows in N bands,
+one per visible device of the ``--device`` kind. The switches of modes
+the port does not have yet (--video, --interactive, --disk_model v2,
+--disk_texture auto, --coordinator_address) are parsed and refused with
+NotImplementedError, naming the ROADMAP item that ports them; those
+modes' own settings return with them.
 
 Usage:
     python -m bhr_tpu_torch.cli --pov 6 0 0.5 --fov 90 -r fhd -o out/frame.png
     python -m bhr_tpu_torch.cli -r fhd --anti_alias lod_radius --lens_flare
     python -m bhr_tpu_torch.cli -r sd --device cpu -o out/frame.png
+    python -m bhr_tpu_torch.cli -r 4k --tile_shards 4   # on a 4-GPU host
 """
 
 from __future__ import annotations
@@ -67,7 +69,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", "-d", type=str, default="cuda",
                    choices=list(DEVICES), help="torch device")
     p.add_argument("--tile_shards", type=int, default=0,
-                   help="single-frame row sharding (not ported yet)")
+                   help="single-frame row sharding over this many devices")
     p.add_argument("--video", action="store_true")
     p.add_argument("--interactive", action="store_true")
     p.add_argument("--disk_rotation_speed", type=float, default=0.1)
@@ -111,7 +113,7 @@ def main(argv=None) -> int:
     if args.coordinator_address is not None:
         raise NotImplementedError(
             "--coordinator_address (multi-host) is not ported to "
-            "bhr_tpu_torch yet (ROADMAP.md Queue 1 item 15)")
+            "bhr_tpu_torch yet (ROADMAP.md Queue 1 item 11)")
     config = config_from_args(args)
 
     from .modes import render_image

@@ -70,15 +70,20 @@ class SceneConfig:
     aa_strength: float = 1.0
 
     # Modes (video and interactive are refused until ported; their
-    # settings return with them)
+    # other settings return with them). The orbit settings place the
+    # cameras of parallel.frames.cameras_for_orbit.
     video: bool = False
     interactive: bool = False
     orbit: bool = False
+    orbit_degrees: float = 360.0
+    n_frames: int = 3600
     output: str = "output/blackhole.png"
 
     # Device / parallelism
     device: str = "cuda"  # "cuda" | "cpu"
-    tile_shards: int = 0  # > 1 is refused until ported
+    # Single-frame spatial sharding: split the pixel rows of ONE frame
+    # over this many devices ("tile" mesh axis; 0/1 = off).
+    tile_shards: int = 0
 
     @property
     def image_size(self) -> Tuple[int, int]:
@@ -117,6 +122,10 @@ class SceneConfig:
             raise ValueError(f"step_size must be positive, got {self.step_size}")
         if not (0.5 <= self.aa_strength <= 2.0):
             raise ValueError(f"aa_strength must be in [0.5, 2.0], got {self.aa_strength}")
+        if self.n_frames <= 0:
+            raise ValueError(f"n_frames must be positive, got {self.n_frames}")
+        if not math.isfinite(self.orbit_degrees):
+            raise ValueError(f"orbit_degrees must be finite, got {self.orbit_degrees}")
         if self.anti_alias not in ("disabled", "lod_radius"):
             raise ValueError(f"unknown anti_alias mode: {self.anti_alias}")
         if self.disk_model not in ("texture", "v2"):
@@ -136,6 +145,18 @@ class SceneConfig:
                 f"tile_shards must be >= 0, got {self.tile_shards}")
         if self.resolution not in RESOLUTIONS:
             raise ValueError(f"unknown resolution preset: {self.resolution}")
+        if self.tile_shards > 1:
+            if self.video or self.interactive:
+                raise ValueError(
+                    "tile_shards applies to single-frame rendering only; "
+                    "video shards whole frames"
+                )
+            height = self.image_size[1]
+            if height % self.tile_shards != 0:
+                raise ValueError(
+                    f"image height {height} is not divisible by "
+                    f"tile_shards {self.tile_shards}"
+                )
         if self.device not in DEVICES:
             raise ValueError(
                 f"device must be one of {DEVICES}, got {self.device!r}")
@@ -157,14 +178,12 @@ class SceneConfig:
 
 
 # (predicate, feature, ROADMAP item that ports it). The still frame of a
-# texture-model scene, with AA and lens flare, is what the port renders
-# so far.
+# texture-model scene, with AA and lens flare, whole or in row bands, is
+# what the port renders so far.
 _UNPORTED = (
     (lambda c: c.video, "--video", "Queue 1 item 11"),
     (lambda c: c.interactive, "--interactive", "Queue 1 item 13"),
     (lambda c: c.disk_model == "v2", "--disk_model v2", "Queue 1 item 12"),
-    (lambda c: c.tile_shards > 1, "--tile_shards > 1",
-     "Queue 1 item 15 and Queue 2 item 4"),
     (lambda c: c.disk_texture == "auto", "--disk_texture auto",
      "Queue 1 item 14"),
 )

@@ -8,18 +8,22 @@
 //   aa      (with_differentials=True,  record_hits=True)  anti-aliased
 //   nodisk  (record_hits=False)                           no disk texture
 // and each of the three with record_step_counts=True (a per-ray step
-// count). The plain PyTorch version it is checked against is
-// bhr_tpu_torch/ops/geodesic.py: trace_geodesics.
+// count). Every instantiation traces a row band (row_start, row_count)
+// of the frame: rows [row0, row0 + rows) of a height-row image plane,
+// the whole frame when row0 = 0 and rows = height. The plain PyTorch
+// version it is checked against is bhr_tpu_torch/ops/geodesic.py:
+// trace_geodesics.
 //
-// What bounds it on this card: FP32 ALU work and warp divergence, not
-// memory. Each RK4 step is ~150 FP32 operations (4 square roots, 5
-// divides) on state held in registers, and the AA variant adds two
-// Jacobian-transported differentials, ~250 more operations and 4 more
-// divides per step. A ray reads nothing and writes its result once,
-// about 210 bytes (hits 4x12 floats, escape direction, flags, count) —
-// about 0.4 GB for a 1920x1080 frame. Rays take from tens of steps
-// (escaping sky) to the iteration cap (photon-ring orbits), so a warp
-// runs as long as its slowest ray.
+// What bounds it on this card: FP32 ALU work, not memory. Each RK4 step
+// is 171 FP32 add/mul/div/sqrt (6 square roots, 13 divides; counted in
+// chip_smoke.py STEP_OPS) on state held in registers, and the AA variant
+// adds two Jacobian-transported differentials, 336 more operations and
+// 20 more divides per step. A ray reads nothing and writes its result
+// once, 210 bytes (hits 4x12 floats, escape direction, flags, count) —
+// 0.44 GB for a 1920x1080 frame, 0.13 ms at 3.35 TB/s against ~0.4 ms
+// of operations at 67 TFLOP/s. Neighbouring rays take similar step
+// counts (a warp's lanes are ~99% busy at FHD), so divergence costs
+// little.
 //
 // Design:
 //  * One thread per pixel; each thread loops until its ray is captured,
@@ -38,11 +42,12 @@
 //    count == k), so a recorded crossing goes straight to `hits` in
 //    global memory and the unwritten slots are zeroed at the end.
 //  * Outputs are written straight into TraceResult's layout (no padding,
-//    no crop): captured/escaped (N,) bytes, escape_dir (N,3), hit_count
-//    (N,) int32, hits (K,12,N), steps (N,) int32. The slim variant leaves
-//    features 5..11 zero (as the Pallas slim kernel; its plain version
-//    writes t_frac at 11), the AA variant writes all 12 (t_frac at 11).
-//    The wrapper allocates them; the kernel allocates nothing.
+//    no crop), over the band's N = rows x width rays: captured/escaped
+//    (N,) bytes, escape_dir (N,3), hit_count (N,) int32, hits (K,12,N),
+//    steps (N,) int32. The slim variant leaves features 5..11 zero (as
+//    the Pallas slim kernel; its plain version writes t_frac at 11), the
+//    AA variant writes all 12 (t_frac at 11). The wrapper allocates
+//    them; the kernel allocates nothing.
 //  * Arithmetic follows the plain version's operation order, with the
 //    correctly rounded sqrtf and '/' (no rsqrtf), and is built with
 //    -fmad=false and without --use_fast_math, so the kernel and the plain
@@ -66,7 +71,10 @@ enum FParam {
   kROut2, kNumFParams
 };
 // Int parameter layout (_IPARAMS).
-enum IParam { kWidth = 0, kHeight, kRow0, kMaxIter, kNumIParams };
+// kHeight is the full frame's height (it sets the image plane), kRows the
+// band's row count (it sets the grid and the output size), kRow0 the
+// band's first pixel row.
+enum IParam { kWidth = 0, kHeight, kRow0, kRows, kMaxIter, kNumIParams };
 
 struct Params {
   float f[kNumFParams];
@@ -166,7 +174,7 @@ ray_march(Params p, const float* __restrict__ cam,
   static_assert(kRecord || !kDiff,
                 "differentials are read only at a recorded crossing");
   const int width = p.i[kWidth];
-  const int rows = p.i[kHeight];
+  const int rows = p.i[kRows];
   const int x = blockIdx.x * kBlockX + threadIdx.x;
   const int y = blockIdx.y * kBlockY + threadIdx.y;
   if (x >= width || y >= rows) return;
@@ -180,8 +188,10 @@ ray_march(Params p, const float* __restrict__ cam,
   plane.ux = cam[6]; plane.uy = cam[7]; plane.uz = cam[8];
   const float fx = cam[9], fy = cam[10], fz = cam[11];
   plane.pw = cam[12]; plane.ph = cam[13];
+  // The image plane is the full frame's; a band only offsets its pixel
+  // rows by row0 (geodesic_pallas.py:145-155).
   const float half_w = plane.pw * static_cast<float>(width) * F32(0.5);
-  const float half_h = plane.ph * static_cast<float>(rows) * F32(0.5);
+  const float half_h = plane.ph * static_cast<float>(p.i[kHeight]) * F32(0.5);
   plane.tlx = plane.cx + fx - plane.rx * half_w + plane.ux * half_h;
   plane.tly = plane.cy + fy - plane.ry * half_w + plane.uy * half_h;
   plane.tlz = plane.cz + fz - plane.rz * half_w + plane.uz * half_h;
@@ -386,11 +396,13 @@ int launch(const float* fparams, const int* iparams, const float* cam,
   Params p;
   for (int j = 0; j < kNumFParams; ++j) p.f[j] = fparams[j];
   for (int j = 0; j < kNumIParams; ++j) p.i[j] = iparams[j];
-  if (p.i[kWidth] <= 0 || p.i[kHeight] <= 0) return cudaErrorInvalidValue;
+  if (p.i[kWidth] <= 0 || p.i[kRows] <= 0 || p.i[kRow0] < 0 ||
+      p.i[kRow0] + p.i[kRows] > p.i[kHeight])
+    return cudaErrorInvalidValue;
   if (kSteps && steps == nullptr) return cudaErrorInvalidValue;
   const dim3 block(kBlockX, kBlockY);
   const dim3 grid((p.i[kWidth] + kBlockX - 1) / kBlockX,
-                  (p.i[kHeight] + kBlockY - 1) / kBlockY);
+                  (p.i[kRows] + kBlockY - 1) / kBlockY);
   ray_march<kDiff, kRecord, kSteps>
       <<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
           p, cam, static_cast<uint8_t*>(captured),

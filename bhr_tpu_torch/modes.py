@@ -1,4 +1,4 @@
-"""Run modes: the single still frame.
+"""Run modes: the single still frame, whole or in row bands.
 
 The port of the still-frame mode of ``bhr_tpu/modes.py`` (reference
 ``render_image``, render.py:4031-4076). Video and interactive modes are
@@ -60,8 +60,18 @@ def _make_renderer(config: SceneConfig) -> tuple:
 def render_image(config: SceneConfig) -> np.ndarray:
     """Render one frame -> (H, W, 3) float32 in [0, 1]; the disk texture
     is generated by the lifecycle system at t=0 unless an external disk
-    texture is given."""
+    texture is given. With ``tile_shards > 1`` the frame's pixel rows
+    shard over the visible devices (``parallel.frames.render_image_tiled``):
+    the same image, traced band by band."""
     config = config.validated()
+    if config.tile_shards > 1:
+        from .parallel.frames import render_image_tiled
+
+        t0 = time.time()
+        img = render_image_tiled(config)
+        print(f"Rendered {config.image_size[0]}x{config.image_size[1]} "
+              f"({config.tile_shards} tile shards) in {time.time() - t0:.2f}s")
+        return img
     renderer, dynamic = _make_renderer(config)
     if dynamic is not None:
         tex = dynamic.advance(t=0.0, dt=0.0, recompute_stats=True)

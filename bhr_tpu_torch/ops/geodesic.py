@@ -62,15 +62,6 @@ class TraceResult(NamedTuple):
     steps: Optional[torch.Tensor] = None
 
 
-def refuse_unported_variant(*, row_start: int = 0, row_count=None) -> None:
-    """Raise for the ray-march variant the port does not have yet."""
-    if row_count is not None or row_start != 0:
-        raise NotImplementedError(
-            "ray-march variant row band (row_start/row_count) is not "
-            "ported to bhr_tpu_torch yet (ROADMAP.md Queue 2 item 4)"
-        )
-
-
 class TraceConstants(NamedTuple):
     """Scalar trace parameters as Python doubles, derived on the host
     exactly as ``bhr_tpu`` derives them (squares, 40 * r_escape and
@@ -107,14 +98,20 @@ def trace_constants(*, h_base: float, r_escape: float, rs: float,
 
 
 def _image_plane_rays(cam_params: torch.Tensor, width: int, height: int,
-                      x_off: float, y_off: float) -> torch.Tensor:
-    """(H*W, 3) unit rays through pixel (col + x_off, row + y_off).
+                      x_off: float, y_off: float, row_start: int = 0,
+                      row_count: Optional[int] = None) -> torch.Tensor:
+    """(R*W, 3) unit rays through pixel (col + x_off, row + y_off) for
+    the rows [row_start, row_start + R) of the frame, R = ``row_count``
+    (default: all ``height`` rows).
 
     Same image-plane arithmetic as the kernel (and the Pallas kernel):
     plane 1 unit ahead, y down, the top-left corner computed in float32
-    from the 14 camera floats; the normalization divides by the
-    correctly rounded norm.
+    from the 14 camera floats and the full frame's ``height``, so a band
+    gets the same rays as those rows of the whole frame; the
+    normalization divides by the correctly rounded norm.
     """
+    if row_count is None:
+        row_count = height
     c = cam_params.to(torch.float32)
     dev = c.device
     cx, cy, cz = c[0], c[1], c[2]
@@ -129,7 +126,10 @@ def _image_plane_rays(cam_params: torch.Tensor, width: int, height: int,
     tlz = cz + fz - rz * half_w + uz * half_h
 
     px = torch.arange(width, dtype=torch.float32, device=dev)[None, :]
-    py = torch.arange(height, dtype=torch.float32, device=dev)[:, None]
+    # Integer rows below 2**24 are exact in float32, as the kernel's
+    # float(y + row0) is.
+    py = torch.arange(row_start, row_start + row_count, dtype=torch.float32,
+                      device=dev)[:, None]
     a = (px + x_off) * pw
     b = (py + y_off) * ph
     dx = tlx + a * rx - b * ux - cx
@@ -141,20 +141,27 @@ def _image_plane_rays(cam_params: torch.Tensor, width: int, height: int,
 
 
 def primary_rays_from_params(cam_params: torch.Tensor, width: int,
-                             height: int) -> torch.Tensor:
-    """(H*W, 3) unit primary ray directions (pixel centers at +0.5),
-    row-major (y, x) pixels."""
-    return _image_plane_rays(cam_params, width, height, 0.5, 0.5)
+                             height: int, row_start: int = 0,
+                             row_count: Optional[int] = None) -> torch.Tensor:
+    """(R*W, 3) unit primary ray directions (pixel centers at +0.5),
+    row-major (y, x) pixels of rows [row_start, row_start + R) of the
+    ``width`` x ``height`` frame (R = ``row_count``, default all rows)."""
+    return _image_plane_rays(cam_params, width, height, 0.5, 0.5,
+                             row_start, row_count)
 
 
 def primary_differentials_from_params(cam_params: torch.Tensor, width: int,
-                                      height: int, d0: torch.Tensor):
-    """(d_dir_dx0, d_dir_dy0), each (H*W, 3): the one-pixel direction
+                                      height: int, d0: torch.Tensor,
+                                      row_start: int = 0,
+                                      row_count: Optional[int] = None):
+    """(d_dir_dx0, d_dir_dy0), each (R*W, 3): the one-pixel direction
     deltas normalize(ray at +1.5, +0.5) - d0 and likewise in y, with
-    ``d0`` from :func:`primary_rays_from_params` (the Pallas kernel's
-    formula, ``geodesic_pallas.py:188-191``)."""
-    ddx = _image_plane_rays(cam_params, width, height, 1.5, 0.5) - d0
-    ddy = _image_plane_rays(cam_params, width, height, 0.5, 1.5) - d0
+    ``d0`` from :func:`primary_rays_from_params` over the same rows (the
+    Pallas kernel's formula, ``geodesic_pallas.py:188-191``)."""
+    ddx = _image_plane_rays(cam_params, width, height, 1.5, 0.5,
+                            row_start, row_count) - d0
+    ddy = _image_plane_rays(cam_params, width, height, 0.5, 1.5,
+                            row_start, row_count) - d0
     return ddx, ddy
 
 

@@ -9,7 +9,9 @@ captured, escapes or reaches the iteration cap, and writes the
 TraceResult layout directly.
 
 Each static variant is one instantiation of the kernel template, named
-in ``KERNELS``; ``kernel_name`` picks the one a call needs.
+in ``KERNELS``; ``kernel_name`` picks the one a call needs. The row band
+(``row_start``, ``row_count``: rows of a taller frame, as a tile shard
+traces them) is a runtime argument of every instantiation.
 
 Routing is by the device of ``cam_params``: a CUDA tensor launches the
 kernel (or raises); a CPU tensor runs the plain version,
@@ -20,6 +22,8 @@ There is no fallback from one to the other.
 from __future__ import annotations
 
 import ctypes
+import operator
+from typing import Optional
 
 import numpy as np
 import torch
@@ -33,7 +37,6 @@ from .geodesic import (
     TraceResult,
     primary_differentials_from_params,
     primary_rays_from_params,
-    refuse_unported_variant,
     trace_constants,
     trace_geodesics,
 )
@@ -43,7 +46,7 @@ from .geodesic import (
 # load).
 _FPARAMS = ("h_base", "rs", "r_floor", "rs2", "r_escape2", "max_affine",
             "tan_t", "r_in2", "r_out2")
-_IPARAMS = ("width", "height", "row0", "max_iter")
+_IPARAMS = ("width", "height", "row0", "rows", "max_iter")
 
 # The kernel's instantiations; the C entry point of each is "bhr_" + name.
 KERNELS = ("ray_march_slim", "ray_march_aa", "ray_march_nodisk",
@@ -117,19 +120,26 @@ def trace_geodesics_cuda(
     max_crossings: int = MAX_DISK_CROSSINGS,
     record_hits: bool = True,
     record_step_counts: bool = False,
-    row_count=None,
+    row_count: Optional[int] = None,
 ) -> TraceResult:
-    """Trace the ``width`` x ``height`` frame of the camera ``cam_params``
-    ((14,) float32, see ``camera_params``) -> TraceResult with flat
-    row-major (H*W) ray order.
+    """Trace rows [row_start, row_start + row_count) of the ``width`` x
+    ``height`` frame of the camera ``cam_params`` ((14,) float32, see
+    ``camera_params``) -> TraceResult with flat row-major (row_count*W)
+    ray order. ``row_count`` defaults to ``height`` (the whole frame);
+    the image plane is always the whole frame's, so a band's rays are
+    those rows of the whole frame's.
 
     ``with_differentials`` writes the AA hit features 5..11,
     ``record_hits=False`` skips the crossing test (hits stay zero) and
-    ``record_step_counts`` fills ``TraceResult.steps``. The row band
-    (``row_start``/``row_count``) is not ported and raises
-    NotImplementedError on every device.
+    ``record_step_counts`` fills ``TraceResult.steps``.
     """
-    refuse_unported_variant(row_start=row_start, row_count=row_count)
+    if row_count is None:
+        row_count = height
+    row_start, row_count = operator.index(row_start), operator.index(row_count)
+    if row_start < 0 or row_count < 1 or row_start + row_count > height:
+        raise ValueError(
+            f"row band [{row_start}, {row_start + row_count}) is not a "
+            f"non-empty band of the {height} frame rows")
     if max_crossings != MAX_DISK_CROSSINGS:
         raise ValueError(
             f"the kernel holds {MAX_DISK_CROSSINGS} hit slots, got "
@@ -144,33 +154,36 @@ def trace_geodesics_cuda(
     variant = dict(with_differentials=with_differentials,
                    record_hits=record_hits,
                    record_step_counts=record_step_counts)
+    band = (width, height, row_start, row_count)
     dev = cam_params.device
     if dev.type == "cpu":
-        dirs = primary_rays_from_params(cam_params, width, height)
+        dirs = primary_rays_from_params(cam_params, *band)
         ddx = ddy = None
         if with_differentials:
             ddx, ddy = primary_differentials_from_params(
-                cam_params, width, height, dirs)
+                cam_params, width, height, dirs, row_start, row_count)
         return trace_geodesics(cam_params[0:3], dirs, d_dir_dx0=ddx,
                                d_dir_dy0=ddy, **trace_kw, **variant)
     if dev.type != "cuda":
         raise ValueError(f"no ray-march route for device {dev}")
-    return _launch(kernel_name(**variant), cam_params, width, height,
-                   trace_kw, record_step_counts)
+    return _launch(kernel_name(**variant), cam_params, band, trace_kw,
+                   record_step_counts)
 
 
-def _launch(name: str, cam: torch.Tensor, width: int, height: int,
-            trace_kw: dict, record_step_counts: bool) -> TraceResult:
-    """Allocate the outputs and launch kernel ``name`` on the current
-    stream."""
+def _launch(name: str, cam: torch.Tensor, band: tuple, trace_kw: dict,
+            record_step_counts: bool) -> TraceResult:
+    """Allocate the outputs of the band ``(width, height, row_start,
+    row_count)`` and launch kernel ``name`` on the current stream."""
     lib = _kernel_lib()
     k = trace_constants(**trace_kw)
     fparams = (ctypes.c_float * len(_FPARAMS))(
         *(getattr(k, p) for p in _FPARAMS))
-    iparams = (ctypes.c_int * len(_IPARAMS))(width, height, 0, k.max_iter)
+    width, height, row_start, row_count = band
+    iparams = (ctypes.c_int * len(_IPARAMS))(width, height, row_start,
+                                             row_count, k.max_iter)
 
     dev = cam.device
-    n = width * height
+    n = width * row_count
     captured = torch.empty(n, dtype=torch.bool, device=dev)
     escaped = torch.empty(n, dtype=torch.bool, device=dev)
     escape_dir = torch.empty((n, 3), dtype=torch.float32, device=dev)

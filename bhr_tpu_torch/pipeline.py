@@ -36,6 +36,10 @@ from .ops.sampling import build_mipmaps, sample_disk, sample_disk_mip, sample_sk
 from .ops.shading import apply_g_factor, pow_const
 
 
+# Mip levels of the disk texture's pyramid (level 0 included).
+MIP_LEVELS = 4
+
+
 def _lod(feat: torch.Tensor, hit_x: torch.Tensor, hit_y: torch.Tensor,
          tex_w: int, tex_h: int, r_inner: float, r_outer: float,
          aa_strength: float) -> torch.Tensor:
@@ -139,6 +143,22 @@ def shade_frame(
     return bg, disk_rgb, alpha_total
 
 
+def post_process(bg_img: torch.Tensor, disk_img: torch.Tensor,
+                 use_bloom: bool, use_flare: bool) -> torch.Tensor:
+    """The frame-global post of (H, W, 3) layers: bloom of the disk layer
+    (``width_ref`` = W) and a clamp, then the lens flare -> (H, W, 3)."""
+    if use_bloom:
+        # The reference's PNG path composites the raw blur field
+        # (render.py:3916-3918); see ops/bloom.py.
+        blur = apply_bloom(disk_img, width_ref=disk_img.shape[1])
+        final = torch.clamp(bg_img + disk_img + blur, 0.0, 1.0)
+    else:
+        final = torch.clamp(bg_img + disk_img, 0.0, 1.0)
+    if use_flare:
+        final = apply_lens_flare(final, disk_img)
+    return final
+
+
 class Renderer:
     """Holds the device assets and config; renders frames stage by stage.
 
@@ -157,7 +177,7 @@ class Renderer:
         config: SceneConfig,
         skybox: np.ndarray,
         disk_tex,
-        mip_levels: int = 4,
+        mip_levels: int = MIP_LEVELS,
         device=None,
     ):
         self.config = config
@@ -232,16 +252,7 @@ class Renderer:
         shape = (self.height, self.width, 3)
         bg_img = bg.reshape(shape)
         disk_img = disk_rgb.reshape(shape)
-        if use_bloom:
-            # The reference's PNG path composites the raw blur field
-            # (render.py:3916-3918); see ops/bloom.py.
-            blur = apply_bloom(disk_img, width_ref=self.width)
-            final = torch.clamp(bg_img + disk_img + blur, 0.0, 1.0)
-        else:
-            final = torch.clamp(bg_img + disk_img, 0.0, 1.0)
-        if use_flare:
-            final = apply_lens_flare(final, disk_img)
-        return final, bg_img, disk_img
+        return post_process(bg_img, disk_img, use_bloom, use_flare), bg_img, disk_img
 
     def _run_frame(self, cam_pos, fov, frame, skip_differentials, skip_bloom,
                    use_flare):

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py    # every phase; the bands of phase 6 go on
+                             # cuda:0..3 where four cards are visible
 
 Phases, one line (or a few) each; any failure raises and the script
 exits non-zero without printing a result:
@@ -32,8 +33,23 @@ exits non-zero without printing a result:
    runs of the step-count instantiations counted as their path; steps
    per ray (mean, p99, max), the warps' lane efficiency and useful
    ray-steps per second of kernel time;
-6. a JSON line describing every instantiation, then the result line
-   ``{"ok": true, "device": {...}}`` as the last line.
+6. the tile path (``parallel.frames``): (a) every instantiation's FHD
+   row band 2 of 4 (rows 540-809) against the plain band and against
+   those rows of the full-frame kernel trace (0 flips, 0.0 difference,
+   equal steps), and each one's bound; (b) the ``default`` and ``aa``
+   goldens through ``render_image_tiled`` in 4 bands (the goldens'
+   bounds, exactly 4 launches); (c) the ``-r 4k --anti_alias lod_radius
+   --aa_strength 1.0 --lens_flare`` still in 4 bands, with the counts
+   set to 0 just before it and read just after (exactly 4
+   ``ray_march_aa`` launches), within 2e-5 of the same frame rendered
+   whole on cuda:0, with stage medians (CUDA events; the tiled stages
+   as ``render_image_tiled``'s ``on_stage`` callback marks them) and peak
+   memory of both. The bands of (b) and (c) run on cuda:0..3 where four
+   cards are visible, else all on cuda:0;
+7. a JSON line describing every instantiation at FHD (kernel, plain
+   version and bound times; ``launches`` sums the paths of phases 5 and
+   6), then the result line ``{"ok": true, "device": {...}}`` as the last
+   line.
 
 Imports torch, numpy and bhr_tpu_torch only.
 """
@@ -75,6 +91,36 @@ VARIANTS = {
 VARIANTS.update({f"{k}_steps": dict(v, record_step_counts=True)
                  for k, v in list(VARIANTS.items())})
 REPLACES = "bhr_tpu/ops/geodesic_pallas.py:582"  # pl.pallas_call of the kernel
+AA_FLAGS = ["--anti_alias", "lod_radius", "--aa_strength", "1.0", "--lens_flare"]
+TILES = 4  # row bands of the tile phase
+TOL_TILED = 2e-5  # tiled vs whole frame (test_sharded_frames.py's bound)
+
+# FP32 add/sub, mul, div and sqrt of csrc/ray_march.cu (fmin/fmax and
+# compares not counted), for the bound of each instantiation:
+# - per RK4 step: adaptive step 16, four accel_factor 36, stage slopes
+#   and positions 66, update 42, r^2 and affine tests 6, plus the
+#   disk-plane test 5 where hits are recorded; AA adds two diff_rk4 of
+#   168 each on every step that survives (not the terminating one);
+# - per ray: image plane and primary ray 62 (AA: 124 with the two
+#   differential rays), escape direction 9 per escaped ray;
+# - per recorded crossing: 12 (AA: 30 with the differentials' lerp).
+STEP_OPS = {"slim": 171, "aa": 171, "nodisk": 166}
+DIFF_STEP_OPS = {"slim": 0, "aa": 336, "nodisk": 0}
+RAY_OPS = {"slim": 62, "aa": 124, "nodisk": 62}
+HIT_OPS = {"slim": 12, "aa": 30, "nodisk": 0}
+# Bytes written per ray: captured, escaped, escape_dir, hit_count, hits
+# (K=4 x 12 floats), plus steps for the _steps instantiations.
+RAY_BYTES = 1 + 1 + 12 + 4 + 4 * 12 * 4
+# NVIDIA H100 SXM published peaks (dense FP32 outside the tensor cores,
+# HBM3 bandwidth). The FP32 peak counts a fused multiply-add as two
+# operations; ray_march.cu is built with -fmad=false, so its adds and
+# muls issue one at a time, at half that rate (PEAK_FP32_UNFUSED). A
+# divide or square root counts as one operation but takes several
+# instructions, so either bound is below the kernel's true least time
+# and the shares printed are lower estimates.
+PEAK_FP32 = 67e12
+PEAK_FP32_UNFUSED = PEAK_FP32 / 2
+PEAK_BYTES = 3.35e12
 
 
 def say(msg: str) -> None:
@@ -197,6 +243,198 @@ def stage_times(cfg, frames: int = 4):
     return {k: statistics.median(v) for k, v in stages.items()}, frame
 
 
+def tiled_stage_times(cfg, devices, frames: int = 4):
+    """``render_image_tiled``'s stages, as its ``on_stage`` callback names
+    them, timed as ``stage_times`` times the whole frame: median ms over
+    frames 1.. (frame 0 warms up) of CUDA events on the first device,
+    each recorded after the other devices are synchronized; and the last
+    frame. The time from "setup" (scene assets made) on is timed."""
+    from bhr_tpu_torch.parallel.frames import render_image_tiled
+
+    first, others = devices[0], set(devices) - {devices[0]}
+    stages, frame = {}, None
+    for i in range(frames):
+        events = []
+
+        def mark(stage):
+            for d in others:
+                torch.cuda.synchronize(d)
+            with torch.cuda.device(first):
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+            events.append((stage, ev))
+
+        torch.cuda.synchronize()
+        frame = render_image_tiled(cfg, devices=devices, on_stage=mark)
+        torch.cuda.synchronize()
+        check([name for name, _ in events] == [
+            "setup", "disk_texture", "replicas", "trace", "shade", "gather",
+            "post"], f"tiled stages {[name for name, _ in events]}")
+        if i:
+            for (_, start), (name, end) in zip(events, events[1:]):
+                stages.setdefault(name, []).append(start.elapsed_time(end))
+    return {k: statistics.median(v) for k, v in stages.items()}, frame
+
+
+def check_band(name, full, w, h, fov, tilt, h_base, r_escape, r_inner, r_outer,
+               row_start, rows, reps):
+    """Kernel ``name``'s row band [row_start, row_start + rows) against
+    the plain band and those rows of ``full``, the full-frame kernel
+    trace of the same camera: all must be equal. -> band kernel ms
+    (the plain band's ms is printed)."""
+    from bhr_tpu_torch.camera import build_camera
+    from bhr_tpu_torch.ops.geodesic import (
+        primary_differentials_from_params,
+        primary_rays_from_params,
+        trace_geodesics,
+    )
+    from bhr_tpu_torch.ops.geodesic_cuda import camera_params, trace_geodesics_cuda
+
+    cam = torch.as_tensor(camera_params(build_camera(POV, fov, w, h)),
+                          device=full.captured.device)
+    kw = dict(h_base=h_base, r_escape=r_escape, tilt_deg=tilt, r_inner=r_inner,
+              r_outer=r_outer, **VARIANTS[name])
+
+    def band_fn():
+        return trace_geodesics_cuda(cam, row_start, row_count=rows, width=w,
+                                    height=h, **kw)
+
+    def plain_fn():
+        dirs = primary_rays_from_params(cam, w, h, row_start, rows)
+        ddx, ddy = primary_differentials_from_params(cam, w, h, dirs, row_start,
+                                                     rows)
+        return trace_geodesics(cam[0:3], dirs, d_dir_dx0=ddx, d_dir_dy0=ddy, **kw)
+
+    band_fn()  # warm-up
+    band, ms = cuda_ms(band_fn, reps)
+    plain, p_ms = cuda_ms(plain_fn)
+    sel = slice(row_start * w, (row_start + rows) * w)
+    rows_of_full = full._replace(
+        **{f: getattr(full, f)[sel] for f in ("captured", "escaped", "escape_dir",
+                                               "hit_count")},
+        hits=full.hits[:, :, sel],
+        steps=None if full.steps is None else full.steps[sel])
+    # The slim kernel leaves t_frac (feature 11) zero, its plain version
+    # writes it.
+    n_feat = 11 if name.startswith("ray_march_slim") else 12
+    for ref_name, ref, nf in (("full-frame rows", rows_of_full, 12),
+                              ("plain band", plain, n_feat)):
+        n_flip, _, err, small_err, step_diff = compare(band, ref, nf)
+        say(f"[tile-band {w}x{h}] {name} rows {row_start}-{row_start + rows - 1} "
+            f"vs {ref_name}: flipped rays {n_flip} max float diff {err:.3e} "
+            f"(features 5.. {small_err:.3e}) step-count mismatches {step_diff}")
+        check(n_flip == 0 and err == 0.0 and small_err == 0.0 and step_diff == 0,
+              f"{name} band differs from the {ref_name}")
+    check(band.captured.shape == (rows * w,), f"{name} band shape")
+    say(f"[tile-band {w}x{h}] {name}: band kernel {ms:.3f} ms plain {p_ms:.3f} ms "
+        f"({rows} of {h} rows)")
+    return ms
+
+
+def bound(name, steps, trace, peak=PEAK_FP32):
+    """(least ms the card could take, "operations" or "bytes") for the
+    instantiation ``name`` on this run's FHD trace: FP32 operations
+    (STEP_OPS etc., over the measured per-ray ``steps``) over ``peak``,
+    and the bytes written over PEAK_BYTES."""
+    base = name.removeprefix("ray_march_").removesuffix("_steps")
+    n = steps.numel()
+    total = float(steps.sum())
+    terminated = int((trace.captured | trace.escaped).sum())
+    ops = (STEP_OPS[base] * total + DIFF_STEP_OPS[base] * (total - terminated)
+           + RAY_OPS[base] * n + 9 * int(trace.escaped.sum())
+           + HIT_OPS[base] * int(trace.hit_count.sum()))
+    nbytes = 14 * 4 + n * (RAY_BYTES + (4 if name.endswith("_steps") else 0))
+    t_ops, t_bytes = ops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def tile_phase(launches, reset_counts) -> int:
+    """Phases 6b and 6c on cuda:0..TILES-1 where that many cards are
+    visible, else on cuda:0 alone; -> the 4K path's ray_march_aa
+    launches."""
+    import bhr_tpu_torch.cli as cli
+    from bhr_tpu_torch.config import SceneConfig
+    from bhr_tpu_torch.modes import render_image
+    from bhr_tpu_torch.parallel.frames import render_image_tiled
+
+    # 6b. the golden scenes through the tile path, in TILES bands
+    n_cards = torch.cuda.device_count()
+    tile_devs = ([torch.device("cuda", i) for i in range(TILES)] if n_cards >= TILES
+                 else [torch.device("cuda", 0)] * TILES)
+    say(f"[tiles] {TILES} bands on {', '.join(map(str, tile_devs))} "
+        f"({n_cards} card(s) visible)")
+    for scene in ("default", "aa"):
+        extra, expected = SCENES[scene]
+        reset_counts()
+        img = render_image_tiled(
+            SceneConfig(device="cuda", tile_shards=TILES, **{**GOLDEN, **extra}),
+            devices=tile_devs)
+        launched = dict(launches)
+        suffix = "" if scene == "default" else f"_{scene}"
+        golden = np.load(os.path.join(ROOT, "tests", "goldens",
+                                      f"e2e_cpu{suffix}.npz"))["image"]
+        diff = np.abs(img.astype(np.float64) - golden.astype(np.float64))
+        whole = np.abs(img - render_image(SceneConfig(
+            device="cuda", **{**GOLDEN, **extra}))).max()
+        say(f"[tiles golden {scene}] vs e2e_cpu{suffix}.npz max {diff.max():.3e} "
+            f"mean {diff.mean():.3e}; vs the whole frame max {whole:.3e}; "
+            f"{expected} launches {launched[expected]}")
+        check(img.shape == (180, 320, 3) and np.isfinite(img).all(),
+              f"tiled golden {scene} shape/finite")
+        check(diff.max() <= 5e-2 and diff.mean() <= 5e-4,
+              f"tiled golden {scene} outside bounds")
+        others = {k: v for k, v in launched.items() if k != expected and v}
+        check(launched[expected] == TILES and not others,
+              f"tiled golden {scene} launched {launched}, expected {expected} "
+              f"{TILES} times")
+
+    # 6c. the tile path at full width: the 4K AA + flare still in bands,
+    # against the same frame rendered whole on the same card.
+    flags_4k = ["-r", "4k", *AA_FLAGS]
+    cfg_4k = cli.config_from_args(cli.build_parser().parse_args(
+        [*flags_4k, "--tile_shards", str(TILES)]))
+    whole_4k = cli.config_from_args(cli.build_parser().parse_args(flags_4k))
+    reset_counts()
+    t0 = time.perf_counter()
+    tiled = render_image_tiled(cfg_4k, devices=tile_devs)
+    t_tiled = time.perf_counter() - t0
+    launched = dict(launches)
+    others = {k: v for k, v in launched.items() if k != "ray_march_aa" and v}
+    say(f"[tiles 4k] {' '.join(flags_4k)} --tile_shards {TILES}: "
+        f"{t_tiled:.2f} s; ray_march_aa launches {launched['ray_march_aa']}")
+    check(launched["ray_march_aa"] == TILES and not others,
+          f"4K tiled frame launched {launched}, expected ray_march_aa {TILES} times")
+    t0 = time.perf_counter()
+    whole = render_image(whole_4k)
+    t_whole = time.perf_counter() - t0
+    diff = np.abs(tiled - whole)
+    say(f"[tiles 4k] vs the whole frame ({t_whole:.2f} s): max {diff.max():.3e}, "
+        f"{int((diff > 0).any(axis=-1).sum())} of {diff.shape[0] * diff.shape[1]} "
+        f"pixels differ")
+    check(tiled.shape == (2160, 3840, 3) and np.isfinite(tiled).all(),
+          "4K tiled frame not finite or wrong shape")
+    check(diff.max() <= TOL_TILED, f"4K tiled vs whole {diff.max()} > {TOL_TILED}")
+    del whole
+    for tag, timer in (("tiled", lambda: tiled_stage_times(cfg_4k, tile_devs)),
+                       ("whole", lambda: stage_times(whole_4k))):
+        for d in set(tile_devs):
+            torch.cuda.reset_peak_memory_stats(d)
+        med, frame = timer()
+        frame = torch.as_tensor(frame)
+        check(bool(torch.isfinite(frame).all()) and frame.shape == (2160, 3840, 3),
+              f"4K {tag} frame not finite or wrong shape")
+        if tag == "tiled":
+            check(bool((frame == torch.from_numpy(tiled)).all()),
+                  "4K timed tiled frame differs from the checked one")
+        peak = max(torch.cuda.max_memory_allocated(d) for d in set(tile_devs))
+        say(f"[tiles 4k-frame {tag}] median ms over 3 frames: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in med.items()) + f"; total "
+            f"{sum(med.values()):.3f}; peak memory {peak / 2**30:.3f} GiB")
+        del frame
+    del tiled
+    return launched["ray_march_aa"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -298,12 +536,11 @@ def main() -> int:
         path_launches[expected] = launched[expected]
 
     cli_frame("default", [], "ray_march_slim")
-    aa_flags = ["--anti_alias", "lod_radius", "--aa_strength", "1.0", "--lens_flare"]
-    cli_frame("aa_flare", aa_flags, "ray_march_aa")
+    cli_frame("aa_flare", AA_FLAGS, "ray_march_aa")
 
     cfg = SceneConfig(resolution="fhd", device="cuda").validated()
     aa_cfg = cli.config_from_args(cli.build_parser().parse_args(
-        ["-r", "fhd", *aa_flags]))
+        ["-r", "fhd", *AA_FLAGS]))
     r_escape = escape_radius(cfg.r_max, cfg.pov)
     for tag, c in (("default", cfg), ("aa_flare", aa_cfg)):
         med, frame = stage_times(c)
@@ -330,20 +567,27 @@ def main() -> int:
     # Every instantiation vs its plain version at FHD. The step-count
     # instantiations run on no frame's path: their path is this
     # diagnostic, counted over its timed kernel runs (warm-up + 3).
-    fhd, steps = {}, {}
+    # 6a. Then each one's row band 2 of 4 (rows 540-809) against the
+    # plain band and those rows of the full-frame kernel trace.
+    fhd, steps, traces, band_ms = {}, {}, {}, {}
+    fhd_args = (1920, 1080, cfg.fov, cfg.disk_tilt, cfg.step_size, r_escape,
+                cfg.disk_inner_radius, cfg.disk_outer_radius)
+    band_rows = 1080 // TILES
     for name in KERNELS:
         reset_counts()
-        res = trace_pair(name, 1920, 1080, cfg.fov, cfg.disk_tilt, cfg.step_size,
-                         r_escape, cfg.disk_inner_radius, cfg.disk_outer_radius, 3)
+        res = trace_pair(name, *fhd_args, 3)
         launched = dict(launches)
         check_pair("1920x1080", name, res)
         others = {k: v for k, v in launched.items() if k != name and v}
         check(launched[name] == 4 and not others,
               f"FHD {name} pair launched {launched}, expected {name} 4 times")
         fhd[name] = res[2:]
+        traces[name] = res[0]
         if name.endswith("_steps"):
             path_launches[name] = launched[name]
             steps[name] = res[0].steps.to(torch.float64)
+        band_ms[name] = check_band(name, res[0], *fhd_args, 2 * band_rows,
+                                   band_rows, 3)
         del res
 
     for name, s in steps.items():
@@ -360,7 +604,36 @@ def main() -> int:
             f"ray-steps/s of {base} kernel time ({fhd[base][0]:.3f} ms), "
             f"{total / (fhd[name][0] * 1e-3):.4e} of its own ({fhd[name][0]:.3f} ms)")
 
-    # 6. results
+    # The bound of each instantiation on this run's FHD data; the
+    # instantiations without step counts trace the same geodesics as
+    # their _steps twins (equal step counts, checked against the plain
+    # version above).
+    bounds = {}
+    sel = slice(2 * band_rows * 1920, 3 * band_rows * 1920)
+    for name in KERNELS:
+        twin = name if name.endswith("_steps") else name + "_steps"
+        band_trace = traces[name]._replace(
+            captured=traces[name].captured[sel], escaped=traces[name].escaped[sel],
+            hit_count=traces[name].hit_count[sel])
+        bounds[name] = bound(name, steps[twin], traces[name])
+        unfused = bound(name, steps[twin], traces[name], PEAK_FP32_UNFUSED)[0]
+        band_bound = bound(name, steps[twin][sel], band_trace)
+        band_unfused = bound(name, steps[twin][sel], band_trace,
+                             PEAK_FP32_UNFUSED)[0]
+        say(f"[bound 1920x1080] {name}: {bounds[name][0]:.4f} ms by "
+            f"{bounds[name][1]}; kernel {fhd[name][0]:.3f} ms "
+            f"({bounds[name][0] / fhd[name][0]:.1%} of the bound's rate; "
+            f"{unfused / fhd[name][0]:.1%} at the unfused FP32 rate, "
+            f"{unfused:.4f} ms); band 2 of {TILES}: {band_bound[0]:.4f} ms by "
+            f"{band_bound[1]}, kernel {band_ms[name]:.3f} ms "
+            f"({band_bound[0] / band_ms[name]:.1%}; unfused "
+            f"{band_unfused / band_ms[name]:.1%})")
+    del traces
+
+    # 6b, 6c. the tile path
+    path_launches["ray_march_aa"] += tile_phase(launches, reset_counts)
+
+    # 7. results
     say(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
@@ -370,6 +643,9 @@ def main() -> int:
         "max_abs_err": max(fhd[name][2][2], fhd[name][2][3]),
         "ms": fhd[name][0],
         "plain_ms": fhd[name][1],
+        "bound_ms": bounds[name][0],
+        "bound_by": bounds[name][1],
+        "library_ms": None,  # no PyTorch call computes a ray march
     } for name in KERNELS]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

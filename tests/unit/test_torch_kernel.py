@@ -15,7 +15,9 @@ equal: a bound of 2e-3 would pass a kernel that got them wrong. The slim
 variant's feature 11 is 0 in the kernel (as in the Pallas slim kernel)
 and t_frac in the plain version (as in bhr_tpu's pure-JAX tracer), so
 it is left out; the slim and no-disk kernels leave 5..11 zero, and the
-no-disk variant's hits are all zero.
+no-disk variant's hits are all zero. A row band of every instantiation
+must equal those rows of the full-frame kernel trace and the plain band
+exactly.
 """
 
 import pytest
@@ -83,3 +85,42 @@ def test_kernel_matches_plain_version(cuda_device, w, h, tilt, variant, steps):
         assert torch.equal(kernel.steps, plain.steps)
     else:
         assert kernel.steps is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("steps", [False, True])
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_band_kernel_matches_full_frame_and_plain(cuda_device, variant, steps):
+    """A row band of the kernel equals those rows of the full-frame kernel
+    trace and the plain band, exactly (0 flips, 0.0 difference, equal
+    steps); the slim plain version's t_frac at feature 11 is left out."""
+    w, h, row_start, rows = 128, 48, 16, 16
+    cam = torch.as_tensor(camera_params(build_camera([6.0, 0.0, 0.5], 60.0, w, h)),
+                          device=cuda_device)
+    kw = dict(h_base=0.2, r_escape=12.04, tilt_deg=40.0, r_inner=2.0, r_outer=3.5,
+              record_step_counts=steps, **VARIANTS[variant])
+    name = kernel_name(with_differentials=kw.get("with_differentials", False),
+                       record_hits=kw.get("record_hits", True),
+                       record_step_counts=steps)
+    before = dict(trace_geodesics_cuda.launches)
+    full = trace_geodesics_cuda(cam, width=w, height=h, **kw)
+    band = trace_geodesics_cuda(cam, row_start, row_count=rows, width=w, height=h,
+                                **kw)
+    torch.cuda.synchronize()
+    assert trace_geodesics_cuda.launches[name] == before[name] + 2
+    assert band.captured.shape == (rows * w,)
+
+    dirs = primary_rays_from_params(cam, w, h, row_start, rows)
+    ddx, ddy = primary_differentials_from_params(cam, w, h, dirs, row_start, rows)
+    plain = trace_geodesics(cam[0:3], dirs, d_dir_dx0=ddx, d_dir_dy0=ddy, **kw)
+    sel = slice(row_start * w, (row_start + rows) * w)
+    n_feat = 11 if variant == "slim" else 12
+    for field in ("captured", "escaped", "escape_dir", "hit_count", "steps"):
+        got = getattr(band, field)
+        if got is None:
+            assert not steps and getattr(full, field) is None
+            continue
+        assert torch.equal(got, getattr(full, field)[sel]), field
+        assert torch.equal(got, getattr(plain, field)), field
+    assert torch.equal(band.hits, full.hits[:, :, sel])
+    assert torch.equal(band.hits[:, :n_feat], plain.hits[:, :n_feat])

@@ -11,7 +11,7 @@
   |diff| <= 5e-2 and mean <= 5e-4 (the AA and flare goldens are in
   ``test_torch_aa.py``).
 * The CLI writes a PNG, with AA and lens flare too; every unported
-  feature raises.
+  feature raises, and so do more row bands than devices.
 """
 
 import os
@@ -274,12 +274,18 @@ def test_cli_renders_ported_features(flags, tmp_path):
 
 @pytest.mark.parametrize("flags", [
     ["--video"], ["--interactive"], ["--disk_model", "v2"],
-    ["--tile_shards", "2"], ["--disk_texture", "auto"],
-    ["--coordinator_address", "localhost:1234"],
+    ["--disk_texture", "auto"], ["--coordinator_address", "localhost:1234"],
 ])
 def test_cli_refuses_unported_features(flags, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cli.main(flags + ["--device", "cpu", "-o", str(tmp_path / "x.png")])
+
+
+def test_cli_tile_shards_need_as_many_devices(tmp_path):
+    # --device cpu sees one CPU device, so two row bands have too few.
+    with pytest.raises(ValueError, match="tile_shards=2 but only 1"):
+        cli.main(["--width", "32", "--height", "16", "--tile_shards", "2",
+                  "--device", "cpu", "-o", str(tmp_path / "x.png")])
 
 
 def test_cli_default_device_without_gpu_raises(tmp_path):

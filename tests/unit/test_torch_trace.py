@@ -59,12 +59,15 @@ def _jax_trace(reference, cam, w, h, **kw):
                                   **kw)
 
 
-def _port_trace(cam, w, h, **kw):
+def _port_trace_params(params, w, h, **kw):
     launches = dict(trace_geodesics_cuda.launches)
-    res = trace_geodesics_cuda(torch.as_tensor(camera_params(cam)), width=w,
-                               height=h, **kw)
+    res = trace_geodesics_cuda(params, width=w, height=h, **kw)
     assert trace_geodesics_cuda.launches == launches  # CPU: no kernel launch
     return res
+
+
+def _port_trace(cam, w, h, **kw):
+    return _port_trace_params(torch.as_tensor(camera_params(cam)), w, h, **kw)
 
 
 @pytest.mark.parametrize("reference", ["pure_jax", "pallas_interpret"])
@@ -193,14 +196,19 @@ def test_primary_differentials_match_jax():
     np.testing.assert_allclose(ddy.numpy(), np.asarray(ref_y), atol=1e-6)
 
 
-@pytest.mark.parametrize("variant", [
-    {"row_count": 8}, {"row_start": 4},
+@pytest.mark.parametrize("band", [
+    {"row_count": 8}, {"row_start": 4, "row_count": 12},
 ])
-def test_unported_variants_raise(variant):
-    cam = build_camera([6.0, 0.0, 0.5], 60.0, 32, 16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trace_geodesics_cuda(torch.as_tensor(camera_params(cam)), width=32,
-                             height=16, **_kw(15.0), **variant)
+def test_row_band_runs_on_cpu(band):
+    cam = torch.as_tensor(camera_params(build_camera([6.0, 0.0, 0.5], 60.0, 32, 16)))
+    res = _port_trace_params(cam, 32, 16, **_kw(15.0), **band)
+    full = _port_trace_params(cam, 32, 16, **_kw(15.0))
+    start = band.get("row_start", 0)
+    sel = slice(start * 32, (start + band["row_count"]) * 32)
+    assert res.captured.shape == (band["row_count"] * 32,)
+    assert bool((res.captured | res.escaped).all())
+    for a, b in zip(res[:5], full[:5]):
+        assert torch.equal(a, b[..., sel] if a.dim() == 3 else b[sel])
 
 
 @pytest.mark.parametrize("variant", [
