@@ -27,12 +27,16 @@ _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
-# -fmad=false and no --use_fast_math: the kernels must round every
-# operation as the plain PyTorch versions do (see csrc/ray_march.cu).
+# The ray-march kernel is bound by instruction issue (see
+# csrc/ray_march.cu), so nvcc's default -fmad=true stays: a multiply and
+# the add that follows it issue as one FFMA. --use_fast_math stays off:
+# the kernels name the approximation they mean (PTX rsqrt.approx.ftz) and
+# the correctly rounded intrinsics (__fsqrt_rn, __frcp_rn) in the source,
+# so no global flag changes what a sqrt, rsqrt or reciprocal computes.
 # -Xptxas -v reports registers, shared memory and spills into the log.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-fmad=false",
+    "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 

@@ -14,18 +14,53 @@
 // version it is checked against is bhr_tpu_torch/ops/geodesic.py:
 // trace_geodesics.
 //
-// What bounds it on this card: FP32 ALU work, not memory. Each RK4 step
-// is 171 FP32 add/mul/div/sqrt (6 square roots, 13 divides; counted in
-// chip_smoke.py STEP_OPS) on state held in registers, and the AA variant
-// adds two Jacobian-transported differentials, 336 more operations and
-// 20 more divides per step. A ray reads nothing and writes its result
-// once, 210 bytes (hits 4x12 floats, escape direction, flags, count) —
-// 0.44 GB for a 1920x1080 frame, 0.13 ms at 3.35 TB/s against ~0.4 ms
-// of operations at 67 TFLOP/s. Neighbouring rays take similar step
-// counts (a warp's lanes are ~99% busy at FHD), so divergence costs
-// little.
+// What bounds it on this card: instruction issue. A ray reads nothing
+// and writes its result once, 210 bytes (hits 4x12 floats, escape
+// direction, flags, count): 0.44 GB for a 1920x1080 frame, 0.13 ms at
+// 3.35 TB/s against ~1 ms of arithmetic. Each RK4 step is a dependent
+// chain of ~120-140 FP32 instructions on state held in registers (the
+// AA variant's two Jacobian-transported differentials add ~225), and
+// neighbouring rays take similar step counts (a warp's lanes are ~99%
+// busy at FHD), so what the SM can issue — 4 warp instructions per
+// clock, 16 MUFU lanes (rsqrt, rcp, the seeds of sqrt and divide) — is
+// the limit. chip_smoke.py counts the fewest SASS instructions a step
+// issues (the loop's shortest way from head to back-branch) and prints
+// this issue bound beside the FP32-operation bound; the divide form of
+// earlier versions (IEEE '/' and sqrtf, built with -fmad=false) issued
+// 2.1-2.2x the instructions per step of this one (PERF.md).
 //
 // Design:
+//  * Divide-free arithmetic, as the Pallas kernel computes it
+//    (geodesic_pallas.py:284-347): one rsqrt per RK4 stage gives both
+//    r^-5 (the acceleration factor) and r^-2 (reused by the Jacobian);
+//    the adaptive step is rs * min(rsqrt(r^2), 1/(rs + 1e-3)) with the
+//    stage-1 rsqrt, sqrt(r_safe / rs) as a multiply by 1/rs, and one
+//    reciprocal; the updates multiply by 1/6; rays and the escape
+//    direction are normalised by x * rsqrt(|x|^2 + 1e-18). An IEEE
+//    divide or square root is a MUFU seed plus a few FFMAs and a
+//    slow-path test; rsqrt.approx.ftz is one MUFU instruction. What is
+//    left: two correctly rounded square roots and one reciprocal per
+//    step, one reciprocal per recorded crossing (t_frac). The source
+//    names each: rsqrt_approx (PTX rsqrt.approx.ftz.f32), __fsqrt_rn and
+//    __frcp_rn (correctly rounded), so no global flag changes them.
+//  * The AA variant's initial differentials are the Pallas kernel's
+//    one-pixel direction deltas, normalize(a) - normalize(v), written
+//    without that subtraction of two unit vectors (pixel_delta): each
+//    carries ~1e-7 of rounding, which is ~1e-4 of a 4K pixel's angle,
+//    and kernel and plain version round it differently, so their p99
+//    relative difference grew with the resolution past 1e-3 (PERF.md).
+//  * Multiply-adds fuse into FFMA (nvcc's default -fmad=true), which
+//    halves the instructions of the RK4 sums and the stage positions.
+//    The kernel therefore no longer matches its plain version bit for
+//    bit; the checks (bhr_tpu_torch/ops/trace_compare.py) hold the two
+//    to bhr_tpu's Pallas-vs-JAX bounds (exact categories and step counts
+//    at the parity scenes, 2e-3 on positions and directions, 5e-3 on the
+//    differentials) and to the port's own: at most 0.1% of rays flipping
+//    at full size, a 1e-3 p99 relative bound on the differentials.
+//  * Registers: state, four stages and (AA) two differentials live in
+//    registers with no spill (ptxas's count per instantiation is in
+//    PERF.md); asking ptxas for more resident blocks per SM moved FHD
+//    times by no more than their spread between runs.
 //  * One thread per pixel; each thread loops until its ray is captured,
 //    escapes or reaches max_iter. The TPU kernel's tile-wide early exit,
 //    unrolled exit checks, float mask carries and two-phase fat/slim loop
@@ -47,12 +82,9 @@
 //    steps (N,) int32. The slim variant leaves features 5..11 zero (as
 //    the Pallas slim kernel; its plain version writes t_frac at 11), the
 //    AA variant writes all 12 (t_frac at 11). The wrapper allocates
-//    them; the kernel allocates nothing.
-//  * Arithmetic follows the plain version's operation order, with the
-//    correctly rounded sqrtf and '/' (no rsqrtf), and is built with
-//    -fmad=false and without --use_fast_math, so the kernel and the plain
-//    version agree bit for bit. Every scalar that Python derives in
-//    double (squares, 40*r_escape, tan(tilt)) arrives precomputed.
+//    them; the kernel allocates nothing. Every scalar that Python derives
+//    in double (squares, 1/rs, 1/(rs + 1e-3), 40*r_escape, tan(tilt))
+//    arrives precomputed.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -67,8 +99,8 @@ constexpr int kNumVariants = 6;  // C entry points below
 
 // Float parameter layout (bhr_tpu_torch/ops/geodesic_cuda.py _FPARAMS).
 enum FParam {
-  kHBase = 0, kRs, kRFloor, kRs2, kREscape2, kMaxAffine, kTanT, kRIn2,
-  kROut2, kNumFParams
+  kHBase = 0, kRs, kRFloor, kInvRs, kInvRFloor, kRs2, kREscape2,
+  kMaxAffine, kTanT, kRIn2, kROut2, kNumFParams
 };
 // Int parameter layout (_IPARAMS).
 // kHeight is the full frame's height (it sets the image plane), kRows the
@@ -85,45 +117,77 @@ struct Params {
 // version's Python scalars are doubles that torch rounds the same way.
 #define F32(x) static_cast<float>(x)
 
-// -1.5 L^2 / r^5 at a stage position; r2 = x*x + y*y + z*z.
-__device__ __forceinline__ float accel_factor(float x, float y, float z,
-                                              float neg15_l2, float& r2) {
-  r2 = x * x + y * y + z * z;
-  const float r5 = r2 * r2 * sqrtf(r2);
-  return neg15_l2 / r5;
+// rsqrt.approx.ftz: one MUFU.RSQ (max relative error 2^-22.9). rsqrtf()
+// adds four instructions to rescale a denormal input, and no input here
+// is one: a squared norm plus 1e-18, or the squared radius of an RK4
+// stage, which stays near 1 or above (the horizon) — FLT_MIN is 1.2e-38.
+__device__ __forceinline__ float rsqrt_approx(float x) {
+  float y;
+  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// x * rsqrt(|x|^2 + 1e-18): the Pallas kernel's _normalize3.
+__device__ __forceinline__ void normalize3(float& x, float& y, float& z) {
+  const float inv = rsqrt_approx(x * x + y * y + z * z + F32(1e-18));
+  x *= inv;
+  y *= inv;
+  z *= inv;
 }
 
 // Image plane 1 unit ahead of the camera, from the 14 camera floats
-// (bhr_tpu_torch.ops.geodesic._image_plane_rays).
+// (bhr_tpu_torch.ops.geodesic._image_plane).
 struct ImagePlane {
   float cx, cy, cz, rx, ry, rz, ux, uy, uz, pw, ph, tlx, tly, tlz;
 
-  // Unit direction through pixel (col + ox, row + oy).
-  __device__ __forceinline__ void ray(float col, float row, float ox,
-                                      float oy, float& vx, float& vy,
-                                      float& vz) const {
-    const float a = (col + ox) * pw;
-    const float b = (row + oy) * ph;
-    const float dx = tlx + a * rx - b * ux - cx;
-    const float dy = tly + a * ry - b * uy - cy;
-    const float dz = tlz + a * rz - b * uz - cz;
-    const float dn = sqrtf(dx * dx + dy * dy + dz * dz);
-    vx = dx / dn;
-    vy = dy / dn;
-    vz = dz / dn;
+  // Unnormalised ray from the camera through the centre of pixel
+  // (col, row).
+  __device__ __forceinline__ void ray(float col, float row, float& vx,
+                                      float& vy, float& vz) const {
+    const float a = (col + F32(0.5)) * pw;
+    const float b = (row + F32(0.5)) * ph;
+    vx = tlx + a * rx - b * ux - cx;
+    vy = tly + a * ry - b * uy - cy;
+    vz = tlz + a * rz - b * uz - cz;
   }
 };
 
-// An RK4 stage position with its factor f = -1.5 L^2 / r^5 and r^2.
+// normalize(v + d) - normalize(v) for the unnormalised ray v with iv =
+// 1/|v| and a one-pixel step d on the image plane, without subtracting
+// two unit vectors (bhr_tpu_torch.ops.geodesic._pixel_delta):
+//   d ia - v (ia - iv),  ia - iv = -(d.(2v + d)) (ia iv)^2 / (ia + iv).
+// Each term is of the size of the result (~a pixel's angle, 1e-3 at
+// FHD), so its rounding error is a few ulp of the result rather than of
+// the unit vectors.
+__device__ __forceinline__ void pixel_delta(const float* v, float iv,
+                                            const float* d, float* out) {
+  const float a0 = v[0] + d[0], a1 = v[1] + d[1], a2 = v[2] + d[2];
+  const float ia = rsqrt_approx(a0 * a0 + a1 * a1 + a2 * a2);
+  const float s = d[0] * (v[0] + a0) + d[1] * (v[1] + a1) + d[2] * (v[2] + a2);
+  const float ii = ia * iv;
+  const float g = s * (ii * ii) * __frcp_rn(ia + iv);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) out[c] = d[c] * ia - v[c] * g;
+}
+
+// An RK4 stage position with 1/r, its factor f = -1.5 L^2 / r^5 and
+// 1/r^2, all from one rsqrt (geodesic_pallas.py:303-312).
 struct Stage {
-  float x, y, z, f, r2;
+  float x, y, z, ir, f, inv_r2;
+
+  __device__ __forceinline__ Stage(float sx, float sy, float sz,
+                                   float neg15_l2)
+      : x(sx), y(sy), z(sz), ir(rsqrt_approx(sx * sx + sy * sy + sz * sz)) {
+    inv_r2 = ir * ir;
+    f = neg15_l2 * (inv_r2 * inv_r2 * ir);
+  }
 };
 
 // h * J(s) d = h * f (d - 5 s (s.d) / r^2): the acceleration's Jacobian
-// applied to a position differential, with the stage's own f and r^2.
+// applied to a position differential, with the stage's own f and 1/r^2.
 __device__ __forceinline__ void h_jac(float h, const Stage& s,
                                       const float* d, float* out) {
-  const float proj = (s.x * d[0] + s.y * d[1] + s.z * d[2]) / s.r2;
+  const float proj = (s.x * d[0] + s.y * d[1] + s.z * d[2]) * s.inv_r2;
   out[0] = h * (s.f * (d[0] - (F32(5.0) * s.x) * proj));
   out[1] = h * (s.f * (d[1] - (F32(5.0) * s.y) * proj));
   out[2] = h * (s.f * (d[2] - (F32(5.0) * s.z) * proj));
@@ -134,7 +198,7 @@ __device__ __forceinline__ void h_jac(float h, const Stage& s,
 __device__ __forceinline__ void diff_rk4(float h, const Stage* st,
                                          const float* dp, const float* dd,
                                          float* ndp, float* ndd) {
-  const float six = F32(6.0), two = F32(2.0), half = F32(0.5);
+  const float sixth = F32(1.0 / 6.0), two = F32(2.0), half = F32(0.5);
   float q1p[3], q1d[3], q2p[3], q2d[3], q3p[3], q3d[3], q4p[3], q4d[3];
   float t[3];
 #pragma unroll
@@ -160,8 +224,8 @@ __device__ __forceinline__ void diff_rk4(float h, const Stage* st,
   h_jac(h, st[3], t, q4d);
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
-    ndp[c] = dp[c] + (q1p[c] + two * q2p[c] + two * q3p[c] + q4p[c]) / six;
-    ndd[c] = dd[c] + (q1d[c] + two * q2d[c] + two * q3d[c] + q4d[c]) / six;
+    ndp[c] = dp[c] + (q1p[c] + two * q2p[c] + two * q3p[c] + q4p[c]) * sixth;
+    ndd[c] = dd[c] + (q1d[c] + two * q2d[c] + two * q3d[c] + q4d[c]) * sixth;
   }
 }
 
@@ -199,8 +263,11 @@ ray_march(Params p, const float* __restrict__ cam,
   const float row = static_cast<float>(y + p.i[kRow0]);
 
   float px = plane.cx, py = plane.cy, pz = plane.cz;
-  float vx, vy, vz;
-  plane.ray(col, row, F32(0.5), F32(0.5), vx, vy, vz);
+  float ray[3];
+  plane.ray(col, row, ray[0], ray[1], ray[2]);
+  const float iv = rsqrt_approx(ray[0] * ray[0] + ray[1] * ray[1] +
+                                ray[2] * ray[2] + F32(1e-18));
+  float vx = ray[0] * iv, vy = ray[1] * iv, vz = ray[2] * iv;
   // L = dir x pos, conserved along the ray.
   const float lx = vy * pz - vz * py;
   const float ly = vz * px - vx * pz;
@@ -208,18 +275,21 @@ ray_march(Params p, const float* __restrict__ cam,
   const float neg15_l2 = F32(-1.5) * (lx * lx + ly * ly + lz * lz);
 
   // Ray differentials (AA): d_pos = 0, d_dir = the one-pixel direction
-  // delta, per pixel axis (primary_differentials_from_params).
+  // delta, per pixel axis (primary_differentials_from_params): one
+  // column right is + pw * right, one row down - ph * up.
   float dxp[3] = {0.0f, 0.0f, 0.0f}, dxd[3] = {0.0f, 0.0f, 0.0f};
   float dyp[3] = {0.0f, 0.0f, 0.0f}, dyd[3] = {0.0f, 0.0f, 0.0f};
   if constexpr (kDiff) {
-    float ax, ay, az, bx, by, bz;
-    plane.ray(col, row, F32(1.5), F32(0.5), ax, ay, az);
-    plane.ray(col, row, F32(0.5), F32(1.5), bx, by, bz);
-    dxd[0] = ax - vx; dxd[1] = ay - vy; dxd[2] = az - vz;
-    dyd[0] = bx - vx; dyd[1] = by - vy; dyd[2] = bz - vz;
+    const float step_x[3] = {plane.pw * plane.rx, plane.pw * plane.ry,
+                             plane.pw * plane.rz};
+    const float step_y[3] = {-plane.ph * plane.ux, -plane.ph * plane.uy,
+                             -plane.ph * plane.uz};
+    pixel_delta(ray, iv, step_x, dxd);
+    pixel_delta(ray, iv, step_y, dyd);
   }
 
   const float h_base = p.f[kHBase], rs = p.f[kRs], r_floor = p.f[kRFloor];
+  const float inv_rs = p.f[kInvRs], inv_r_floor = p.f[kInvRFloor];
   const float rs2 = p.f[kRs2], r_escape2 = p.f[kREscape2];
   const float max_affine = p.f[kMaxAffine], tan_t = p.f[kTanT];
   const float r_in2 = p.f[kRIn2], r_out2 = p.f[kROut2];
@@ -240,45 +310,48 @@ ray_march(Params p, const float* __restrict__ cam,
   for (int it = 0; it < max_iter; ++it) {
     if constexpr (kSteps) ++n_steps;
     // r-adaptive step: h_base * clamp(min(sqrt(r/rs), 10) /
-    // (1 + 2 (rs/r)^3), 0.2, 10), r clamped at rs + 1e-3.
-    const float r = sqrtf(px * px + py * py + pz * pz);
+    // (1 + 2 (rs/r)^3), 0.2, 10), r clamped at rs + 1e-3; rs/r as
+    // rs * min(rsqrt(r^2), 1/(rs + 1e-3)) with stage 1's rsqrt
+    // (geodesic_pallas.py:284-294).
+    const Stage s1(px, py, pz, neg15_l2);
+    const float r = __fsqrt_rn(px * px + py * py + pz * pz);
     const float r_safe = fmaxf(r, r_floor);
-    const float far = fminf(sqrtf(r_safe / rs), F32(10.0));
-    const float q = rs / r_safe;
-    const float near = F32(1.0) / (F32(1.0) + F32(2.0) * (q * q * q));
+    const float far = fminf(__fsqrt_rn(r_safe * inv_rs), F32(10.0));
+    const float q = rs * fminf(s1.ir, inv_r_floor);
+    const float near = __frcp_rn(F32(1.0) + F32(2.0) * (q * q * q));
     const float h = h_base * fminf(fmaxf(far * near, F32(0.2)), F32(10.0));
 
     // RK4 of (pos, dir) with a = -1.5 L^2 pos / r^5.
-    float r2_1, r2_2, r2_3, r2_4;
-    const float f1 = accel_factor(px, py, pz, neg15_l2, r2_1);
     const float k1px = h * vx, k1py = h * vy, k1pz = h * vz;
-    const float k1dx = h * (f1 * px), k1dy = h * (f1 * py), k1dz = h * (f1 * pz);
+    const float k1dx = h * (s1.f * px), k1dy = h * (s1.f * py),
+                k1dz = h * (s1.f * pz);
     const float k2px = h * (vx + F32(0.5) * k1dx);
     const float k2py = h * (vy + F32(0.5) * k1dy);
     const float k2pz = h * (vz + F32(0.5) * k1dz);
-    const float s2x = px + F32(0.5) * k1px, s2y = py + F32(0.5) * k1py,
-                s2z = pz + F32(0.5) * k1pz;
-    const float f2 = accel_factor(s2x, s2y, s2z, neg15_l2, r2_2);
-    const float k2dx = h * (f2 * s2x), k2dy = h * (f2 * s2y), k2dz = h * (f2 * s2z);
+    const Stage s2(px + F32(0.5) * k1px, py + F32(0.5) * k1py,
+                   pz + F32(0.5) * k1pz, neg15_l2);
+    const float k2dx = h * (s2.f * s2.x), k2dy = h * (s2.f * s2.y),
+                k2dz = h * (s2.f * s2.z);
     const float k3px = h * (vx + F32(0.5) * k2dx);
     const float k3py = h * (vy + F32(0.5) * k2dy);
     const float k3pz = h * (vz + F32(0.5) * k2dz);
-    const float s3x = px + F32(0.5) * k2px, s3y = py + F32(0.5) * k2py,
-                s3z = pz + F32(0.5) * k2pz;
-    const float f3 = accel_factor(s3x, s3y, s3z, neg15_l2, r2_3);
-    const float k3dx = h * (f3 * s3x), k3dy = h * (f3 * s3y), k3dz = h * (f3 * s3z);
-    const float k4px = h * (vx + k3dx), k4py = h * (vy + k3dy), k4pz = h * (vz + k3dz);
-    const float s4x = px + k3px, s4y = py + k3py, s4z = pz + k3pz;
-    const float f4 = accel_factor(s4x, s4y, s4z, neg15_l2, r2_4);
-    const float k4dx = h * (f4 * s4x), k4dy = h * (f4 * s4y), k4dz = h * (f4 * s4z);
+    const Stage s3(px + F32(0.5) * k2px, py + F32(0.5) * k2py,
+                   pz + F32(0.5) * k2pz, neg15_l2);
+    const float k3dx = h * (s3.f * s3.x), k3dy = h * (s3.f * s3.y),
+                k3dz = h * (s3.f * s3.z);
+    const float k4px = h * (vx + k3dx), k4py = h * (vy + k3dy),
+                k4pz = h * (vz + k3dz);
+    const Stage s4(px + k3px, py + k3py, pz + k3pz, neg15_l2);
+    const float k4dx = h * (s4.f * s4.x), k4dy = h * (s4.f * s4.y),
+                k4dz = h * (s4.f * s4.z);
 
-    const float six = F32(6.0), two = F32(2.0);
-    const float npx = px + (k1px + two * k2px + two * k3px + k4px) / six;
-    const float npy = py + (k1py + two * k2py + two * k3py + k4py) / six;
-    const float npz = pz + (k1pz + two * k2pz + two * k3pz + k4pz) / six;
-    const float nvx = vx + (k1dx + two * k2dx + two * k3dx + k4dx) / six;
-    const float nvy = vy + (k1dy + two * k2dy + two * k3dy + k4dy) / six;
-    const float nvz = vz + (k1dz + two * k2dz + two * k3dz + k4dz) / six;
+    const float sixth = F32(1.0 / 6.0), two = F32(2.0);
+    const float npx = px + (k1px + two * k2px + two * k3px + k4px) * sixth;
+    const float npy = py + (k1py + two * k2py + two * k3py + k4py) * sixth;
+    const float npz = pz + (k1pz + two * k2pz + two * k3pz + k4pz) * sixth;
+    const float nvx = vx + (k1dx + two * k2dx + two * k3dx + k4dx) * sixth;
+    const float nvy = vy + (k1dy + two * k2dy + two * k3dy + k4dy) * sixth;
+    const float nvz = vz + (k1dz + two * k2dz + two * k3dz + k4dz) * sixth;
 
     // r^2-space termination tests.
     const float nr2 = npx * npx + npy * npy + npz * npz;
@@ -289,11 +362,8 @@ ray_march(Params p, const float* __restrict__ cam,
     }
     if (nr2 > r_escape2 || affine_new > max_affine) {
       is_escaped = true;
-      const float en = fmaxf(sqrtf(nvx * nvx + nvy * nvy + nvz * nvz),
-                             F32(1e-9));
-      ex = nvx / en;
-      ey = nvy / en;
-      ez = nvz / en;
+      ex = nvx; ey = nvy; ez = nvz;
+      normalize3(ex, ey, ez);
       break;
     }
 
@@ -301,8 +371,7 @@ ray_march(Params p, const float* __restrict__ cam,
     // step its result would be discarded).
     float ndxp[3], ndxd[3], ndyp[3], ndyd[3];
     if constexpr (kDiff) {
-      const Stage st[4] = {{px, py, pz, f1, r2_1}, {s2x, s2y, s2z, f2, r2_2},
-                           {s3x, s3y, s3z, f3, r2_3}, {s4x, s4y, s4z, f4, r2_4}};
+      const Stage st[4] = {s1, s2, s3, s4};
       diff_rk4(h, st, dxp, dxd, ndxp, ndxd);
       diff_rk4(h, st, dyp, dyd, ndyp, ndyd);
     }
@@ -313,7 +382,7 @@ ray_march(Params p, const float* __restrict__ cam,
       const float f_old = pz - py * tan_t;
       const float f_new = npz - npy * tan_t;
       if (f_old * f_new < 0.0f) {
-        const float t_frac = f_old / (f_old - f_new + F32(1e-8));
+        const float t_frac = f_old * __frcp_rn(f_old - f_new + F32(1e-8));
         const float hx = px + t_frac * (npx - px);
         const float hy = py + t_frac * (npy - py);
         const float hr2 = hx * hx + hy * hy;

@@ -16,6 +16,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ..config import torch_device
 from ..constants import DISK_COLOR_TEMPERATURE
 from ..ops.background import generate_background_components
 from ..ops.stats import approx_quantile, approx_quantile_rows
@@ -84,9 +85,12 @@ class DynamicDiskSystem:
     """Per-frame dynamic texture generator (lifecycle + background).
 
     Usage:
-        dyn = DynamicDiskSystem(n_r, n_phi, r_inner, r_outer, seed=42,
-                                device="cuda")
+        dyn = DynamicDiskSystem(n_r, n_phi, r_inner, r_outer, seed=42)
         tex = dyn.advance(t=0.0, dt=0.0, recompute_stats=True)
+
+    ``device`` is a ``SceneConfig.device`` name (default ``"cuda"``,
+    which raises on a host without a GPU, as ``SceneConfig`` does) or a
+    ``torch.device``.
     """
 
     def __init__(
@@ -99,7 +103,7 @@ class DynamicDiskSystem:
         enable_rt: bool = True,
         color_temp: Optional[float] = None,
         generation_scale: Optional[int] = None,
-        device="cpu",
+        device="cuda",
     ):
         self.n_r = n_r
         self.n_phi = n_phi
@@ -116,7 +120,8 @@ class DynamicDiskSystem:
         self.color_temp = float(
             DISK_COLOR_TEMPERATURE if color_temp is None else color_temp
         )
-        self.device = torch.device(device)
+        self.device = (torch_device(device) if isinstance(device, str)
+                       else torch.device(device))
 
         rng = np.random.default_rng(seed)
         self.az_freq = float(rng.integers(2, 5))

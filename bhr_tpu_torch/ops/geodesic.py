@@ -11,14 +11,18 @@ the acceleration's Jacobian at the main ray's four RK4 stage positions.
 This is the plain version of the ray-march kernel
 (``geodesic_cuda.trace_geodesics_cuda``, ``csrc/ray_march.cu``): a
 lock-step masked loop over all rays that runs on any device. It is the
-CPU path and the oracle the kernel is checked against on the card, so
-its arithmetic follows the kernel's operation order exactly:
-
-  * every sum of squares and dot product is written x*x + y*y + z*z
-    (never a reduction, whose order is unspecified);
-  * every division divides by a tensor on the same device: PyTorch's
-    CUDA division by a CPU scalar multiplies by its reciprocal instead,
-    which rounds differently from the kernel's ``/``.
+CPU path and the oracle the kernel is checked against on the card. Both
+compute what ``bhr_tpu``'s Pallas kernel computes, divide-free: one
+rsqrt per RK4 stage gives r^-5 and r^-2, the adaptive step takes
+rs/r as rs * min(rsqrt(r^2), 1/(rs + 1e-3)), the updates multiply by
+1/6, rays and escape directions are normalised by x * rsqrt(|x|^2 +
+1e-18), and reciprocals remain only for the step's ``near`` factor and a
+crossing's t_frac. The initial differentials are the Pallas kernel's
+one-pixel direction deltas, written without its subtraction of two unit
+vectors (:func:`primary_differentials_from_params`). The kernel fuses multiply-adds and this version does
+not, so the two agree to tolerances (``trace_compare``), not bit for
+bit. Every sum of squares and dot product is written
+x*x + y*y + z*z, in the kernel's order.
 
 Rays that terminated are dropped from the working set (compaction):
 their state is frozen in the masked formulation anyway, so results are
@@ -64,14 +68,16 @@ class TraceResult(NamedTuple):
 
 class TraceConstants(NamedTuple):
     """Scalar trace parameters as Python doubles, derived on the host
-    exactly as ``bhr_tpu`` derives them (squares, 40 * r_escape and
-    tan(tilt) in double). Each is rounded to float32 once: where it meets
-    a float32 tensor in the plain version, by ``ctypes.c_float`` for the
-    kernel — the same rounding either way."""
+    exactly as ``bhr_tpu`` derives them (squares, reciprocals,
+    40 * r_escape and tan(tilt) in double). Each is rounded to float32
+    once: where it meets a float32 tensor in the plain version, by
+    ``ctypes.c_float`` for the kernel — the same rounding either way."""
 
     h_base: float
     rs: float
     r_floor: float  # rs + 1e-3, the adaptive step's clamp
+    inv_rs: float  # 1 / rs
+    inv_r_floor: float  # 1 / (rs + 1e-3)
     rs2: float
     r_escape2: float
     max_affine: float  # 40 * r_escape
@@ -87,7 +93,8 @@ def trace_constants(*, h_base: float, r_escape: float, rs: float,
     """The scalar arguments shared by the plain version and the kernel."""
     max_affine = r_escape * 40.0
     return TraceConstants(
-        h_base=float(h_base), rs=float(rs), r_floor=rs + 1e-3, rs2=rs * rs,
+        h_base=float(h_base), rs=float(rs), r_floor=rs + 1e-3,
+        inv_rs=1.0 / rs, inv_r_floor=1.0 / (rs + 1e-3), rs2=rs * rs,
         r_escape2=r_escape * r_escape, max_affine=max_affine,
         tan_t=math.tan(math.radians(tilt_deg)),
         r_in2=r_inner * r_inner, r_out2=r_outer * r_outer,
@@ -97,18 +104,31 @@ def trace_constants(*, h_base: float, r_escape: float, rs: float,
     )
 
 
-def _image_plane_rays(cam_params: torch.Tensor, width: int, height: int,
-                      x_off: float, y_off: float, row_start: int = 0,
-                      row_count: Optional[int] = None) -> torch.Tensor:
-    """(R*W, 3) unit rays through pixel (col + x_off, row + y_off) for
-    the rows [row_start, row_start + R) of the frame, R = ``row_count``
-    (default: all ``height`` rows).
+def _normalize3(x, y, z):
+    """x * rsqrt(|x|^2 + 1e-18) per component (the Pallas kernel's
+    ``_normalize3``)."""
+    inv = torch.rsqrt(x * x + y * y + z * z + 1e-18)
+    return x * inv, y * inv, z * inv
+
+
+def _stage(x, y, z, neg15_l2):
+    """(1/r, -1.5 L^2 / r^5, 1/r^2) at a stage position, from one rsqrt."""
+    ir = torch.rsqrt(x * x + y * y + z * z)
+    inv_r2 = ir * ir
+    return ir, neg15_l2 * (inv_r2 * inv_r2 * ir), inv_r2
+
+
+def _image_plane(cam_params: torch.Tensor, width: int, height: int,
+                 row_start: int = 0, row_count: Optional[int] = None):
+    """((dx, dy, dz), c): the unnormalised rays from the camera through
+    the pixel centres of rows [row_start, row_start + R) of the frame, R
+    = ``row_count`` (default: all ``height`` rows), each (R, W); and the
+    14 camera floats as float32.
 
     Same image-plane arithmetic as the kernel (and the Pallas kernel):
     plane 1 unit ahead, y down, the top-left corner computed in float32
     from the 14 camera floats and the full frame's ``height``, so a band
-    gets the same rays as those rows of the whole frame; the
-    normalization divides by the correctly rounded norm.
+    gets the same rays as those rows of the whole frame.
     """
     if row_count is None:
         row_count = height
@@ -130,14 +150,10 @@ def _image_plane_rays(cam_params: torch.Tensor, width: int, height: int,
     # float(y + row0) is.
     py = torch.arange(row_start, row_start + row_count, dtype=torch.float32,
                       device=dev)[:, None]
-    a = (px + x_off) * pw
-    b = (py + y_off) * ph
-    dx = tlx + a * rx - b * ux - cx
-    dy = tly + a * ry - b * uy - cy
-    dz = tlz + a * rz - b * uz - cz
-    norm = torch.sqrt(dx * dx + dy * dy + dz * dz)
-    d = torch.stack([dx / norm, dy / norm, dz / norm], dim=-1)
-    return d.reshape(-1, 3)
+    a = (px + 0.5) * pw
+    b = (py + 0.5) * ph
+    return (tlx + a * rx - b * ux - cx, tly + a * ry - b * uy - cy,
+            tlz + a * rz - b * uz - cz), c
 
 
 def primary_rays_from_params(cam_params: torch.Tensor, width: int,
@@ -145,34 +161,61 @@ def primary_rays_from_params(cam_params: torch.Tensor, width: int,
                              row_count: Optional[int] = None) -> torch.Tensor:
     """(R*W, 3) unit primary ray directions (pixel centers at +0.5),
     row-major (y, x) pixels of rows [row_start, row_start + R) of the
-    ``width`` x ``height`` frame (R = ``row_count``, default all rows)."""
-    return _image_plane_rays(cam_params, width, height, 0.5, 0.5,
-                             row_start, row_count)
+    ``width`` x ``height`` frame (R = ``row_count``, default all rows),
+    normalised by :func:`_normalize3`."""
+    v, _ = _image_plane(cam_params, width, height, row_start, row_count)
+    return torch.stack(_normalize3(*v), dim=-1).reshape(-1, 3)
+
+
+def _pixel_delta(v, iv, d):
+    """normalize(v + d) - normalize(v) for the unnormalised ray ``v``
+    (three tensors) with ``iv`` = 1/|v| and a one-pixel step ``d`` on the
+    image plane (three scalars), without subtracting two unit vectors:
+
+        (v + d) ia - v iv = d ia - v (ia - iv),
+        ia - iv = -(d.(2v + d)) (ia iv)^2 / (ia + iv),   ia = 1/|v + d|.
+
+    Each term is of the size of the result, so its rounding error is a
+    few ulp of the result rather than of the unit vectors."""
+    a = [v[c] + d[c] for c in range(3)]
+    ia = torch.rsqrt(a[0] * a[0] + a[1] * a[1] + a[2] * a[2])
+    s = d[0] * (v[0] + a[0]) + d[1] * (v[1] + a[1]) + d[2] * (v[2] + a[2])
+    ii = ia * iv
+    g = s * (ii * ii) * torch.reciprocal(ia + iv)
+    return torch.stack([d[c] * ia - v[c] * g for c in range(3)], dim=-1)
 
 
 def primary_differentials_from_params(cam_params: torch.Tensor, width: int,
-                                      height: int, d0: torch.Tensor,
-                                      row_start: int = 0,
+                                      height: int, row_start: int = 0,
                                       row_count: Optional[int] = None):
     """(d_dir_dx0, d_dir_dy0), each (R*W, 3): the one-pixel direction
-    deltas normalize(ray at +1.5, +0.5) - d0 and likewise in y, with
-    ``d0`` from :func:`primary_rays_from_params` over the same rows (the
-    Pallas kernel's formula, ``geodesic_pallas.py:188-191``)."""
-    ddx = _image_plane_rays(cam_params, width, height, 1.5, 0.5,
-                            row_start, row_count) - d0
-    ddy = _image_plane_rays(cam_params, width, height, 0.5, 1.5,
-                            row_start, row_count) - d0
-    return ddx, ddy
+    deltas, normalize(ray through (col + 1.5, row + 0.5)) minus the unit
+    primary ray, and likewise one row down, over rows [row_start,
+    row_start + R). The Pallas kernel (``geodesic_pallas.py:188-191``)
+    subtracts the two unit rays; the same delta is computed here by
+    :func:`_pixel_delta`, whose rounding error is ~1e-7 of the delta
+    instead of ~1e-7 absolute (a pixel's angle is ~1e-3 at FHD)."""
+    v, c = _image_plane(cam_params, width, height, row_start, row_count)
+    iv = torch.rsqrt(v[0] * v[0] + v[1] * v[1] + v[2] * v[2] + 1e-18)
+    pw, ph = c[12], c[13]
+    step_x = (pw * c[3], pw * c[4], pw * c[5])  # +1 column: + pw * right
+    step_y = (-ph * c[6], -ph * c[7], -ph * c[8])  # +1 row: - ph * up
+    return (_pixel_delta(v, iv, step_x).reshape(-1, 3),
+            _pixel_delta(v, iv, step_y).reshape(-1, 3))
 
 
-def _diff_rk4(h, stages, dp, dd, six):
+SIXTH = 1.0 / 6.0
+
+
+def _diff_rk4(h, stages, dp, dd):
     """One RK4 step of a ray differential (d_pos, d_dir) at the main
     ray's stage positions: d'' = J(s) d = f (d - 5 s (s.d) / r^2), with
-    each stage's own factor f and r^2 (``bhr_tpu`` geodesic.py:119-133)."""
+    each stage's own factor f and 1/r^2 (``bhr_tpu`` geodesic.py:119-133,
+    in geodesic_pallas.py:340-383's divide-free form)."""
 
     def jac(stage, d):
-        s, f, r2 = stage
-        proj = (s[0] * d[0] + s[1] * d[1] + s[2] * d[2]) / r2
+        s, f, inv_r2 = stage
+        proj = (s[0] * d[0] + s[1] * d[1] + s[2] * d[2]) * inv_r2
         return [h * (f * (d[c] - 5.0 * s[c] * proj)) for c in range(3)]
 
     q1p = [h * dd[c] for c in range(3)]
@@ -183,9 +226,9 @@ def _diff_rk4(h, stages, dp, dd, six):
     q3d = jac(stages[2], [dp[c] + 0.5 * q2p[c] for c in range(3)])
     q4p = [h * (dd[c] + q3d[c]) for c in range(3)]
     q4d = jac(stages[3], [dp[c] + q3p[c] for c in range(3)])
-    ndp = [dp[c] + (q1p[c] + 2.0 * q2p[c] + 2.0 * q3p[c] + q4p[c]) / six
+    ndp = [dp[c] + (q1p[c] + 2.0 * q2p[c] + 2.0 * q3p[c] + q4p[c]) * SIXTH
            for c in range(3)]
-    ndd = [dd[c] + (q1d[c] + 2.0 * q2d[c] + 2.0 * q3d[c] + q4d[c]) / six
+    ndd = [dd[c] + (q1d[c] + 2.0 * q2d[c] + 2.0 * q3d[c] + q4d[c]) * SIXTH
            for c in range(3)]
     return ndp, ndd
 
@@ -240,12 +283,6 @@ def trace_geodesics(
     k = trace_constants(h_base=h_base, r_escape=r_escape, rs=rs,
                         tilt_deg=tilt_deg, r_inner=r_inner, r_outer=r_outer)
 
-    def const(v):
-        return torch.tensor(v, dtype=f32, device=dev)
-
-    rs_t, six, eps_t = const(k.rs), const(6.0), const(1e-8)
-    one, min_norm = const(1.0), const(1e-9)
-
     o = origin.to(device=dev, dtype=f32)
     d = directions.to(f32)
     px = o[0].expand(n).clone()
@@ -278,48 +315,44 @@ def trace_geodesics(
     steps = (torch.zeros(n, dtype=torch.int32, device=dev)
              if record_step_counts else None)
 
-    def accel_factor(x, y, z, nl2):
-        """(-1.5 L^2 / r^5, r^2) at a stage position."""
-        r2 = x * x + y * y + z * z
-        r5 = r2 * r2 * torch.sqrt(r2)
-        return nl2 / r5, r2
-
     for it in range(k.max_iter):
         if ids.numel() == 0:
             break
+        # r-adaptive step, divide-free with stage 1's rsqrt, and stage 1
+        # (geodesic_pallas.py:284-294).
+        ir1, f1, i1 = _stage(px, py, pz, neg15_l2)
         r = torch.sqrt(px * px + py * py + pz * pz)
         r_safe = torch.clamp(r, min=k.r_floor)
-        far = torch.clamp(torch.sqrt(r_safe / rs_t), max=10.0)
-        q = rs_t / r_safe
-        near = one / (1.0 + 2.0 * (q * q * q))
+        far = torch.clamp(torch.sqrt(r_safe * k.inv_rs), max=10.0)
+        q = k.rs * torch.clamp(ir1, max=k.inv_r_floor)
+        near = torch.reciprocal(1.0 + 2.0 * (q * q * q))
         h = k.h_base * torch.clamp(far * near, 0.2, 10.0)
 
-        f1, r2_1 = accel_factor(px, py, pz, neg15_l2)
         k1px, k1py, k1pz = h * vx, h * vy, h * vz
         k1dx, k1dy, k1dz = h * (f1 * px), h * (f1 * py), h * (f1 * pz)
         k2px = h * (vx + 0.5 * k1dx)
         k2py = h * (vy + 0.5 * k1dy)
         k2pz = h * (vz + 0.5 * k1dz)
         s2x, s2y, s2z = px + 0.5 * k1px, py + 0.5 * k1py, pz + 0.5 * k1pz
-        f2, r2_2 = accel_factor(s2x, s2y, s2z, neg15_l2)
+        _, f2, i2 = _stage(s2x, s2y, s2z, neg15_l2)
         k2dx, k2dy, k2dz = h * (f2 * s2x), h * (f2 * s2y), h * (f2 * s2z)
         k3px = h * (vx + 0.5 * k2dx)
         k3py = h * (vy + 0.5 * k2dy)
         k3pz = h * (vz + 0.5 * k2dz)
         s3x, s3y, s3z = px + 0.5 * k2px, py + 0.5 * k2py, pz + 0.5 * k2pz
-        f3, r2_3 = accel_factor(s3x, s3y, s3z, neg15_l2)
+        _, f3, i3 = _stage(s3x, s3y, s3z, neg15_l2)
         k3dx, k3dy, k3dz = h * (f3 * s3x), h * (f3 * s3y), h * (f3 * s3z)
         k4px, k4py, k4pz = h * (vx + k3dx), h * (vy + k3dy), h * (vz + k3dz)
         s4x, s4y, s4z = px + k3px, py + k3py, pz + k3pz
-        f4, r2_4 = accel_factor(s4x, s4y, s4z, neg15_l2)
+        _, f4, i4 = _stage(s4x, s4y, s4z, neg15_l2)
         k4dx, k4dy, k4dz = h * (f4 * s4x), h * (f4 * s4y), h * (f4 * s4z)
 
-        npx = px + (k1px + 2.0 * k2px + 2.0 * k3px + k4px) / six
-        npy = py + (k1py + 2.0 * k2py + 2.0 * k3py + k4py) / six
-        npz = pz + (k1pz + 2.0 * k2pz + 2.0 * k3pz + k4pz) / six
-        nvx = vx + (k1dx + 2.0 * k2dx + 2.0 * k3dx + k4dx) / six
-        nvy = vy + (k1dy + 2.0 * k2dy + 2.0 * k3dy + k4dy) / six
-        nvz = vz + (k1dz + 2.0 * k2dz + 2.0 * k3dz + k4dz) / six
+        npx = px + (k1px + 2.0 * k2px + 2.0 * k3px + k4px) * SIXTH
+        npy = py + (k1py + 2.0 * k2py + 2.0 * k3py + k4py) * SIXTH
+        npz = pz + (k1pz + 2.0 * k2pz + 2.0 * k3pz + k4pz) * SIXTH
+        nvx = vx + (k1dx + 2.0 * k2dx + 2.0 * k3dx + k4dx) * SIXTH
+        nvy = vy + (k1dy + 2.0 * k2dy + 2.0 * k3dy + k4dy) * SIXTH
+        nvz = vz + (k1dz + 2.0 * k2dz + 2.0 * k3dz + k4dz) * SIXTH
 
         # r^2-space termination tests, as in the kernel.
         nr2 = npx * npx + npy * npy + npz * npz
@@ -332,21 +365,19 @@ def trace_geodesics(
         captured[ids[captured_now]] = True
         if bool(escaped_now.any()):
             sel = ids[escaped_now]
-            ex, ey, ez = nvx[escaped_now], nvy[escaped_now], nvz[escaped_now]
-            norm = torch.clamp(torch.sqrt(ex * ex + ey * ey + ez * ez),
-                               min=min_norm)
             escaped[sel] = True
-            escape_dir[sel] = torch.stack([ex / norm, ey / norm, ez / norm], 1)
+            escape_dir[sel] = torch.stack(_normalize3(
+                nvx[escaped_now], nvy[escaped_now], nvz[escaped_now]), 1)
         if steps is not None:
             steps[ids[~survive]] = it + 1
 
         new_diff = []
         if diffs:
-            stages = (((px, py, pz), f1, r2_1), ((s2x, s2y, s2z), f2, r2_2),
-                      ((s3x, s3y, s3z), f3, r2_3), ((s4x, s4y, s4z), f4, r2_4))
+            stages = (((px, py, pz), f1, i1), ((s2x, s2y, s2z), f2, i2),
+                      ((s3x, s3y, s3z), f3, i3), ((s4x, s4y, s4z), f4, i4))
             for a in (0, 6):  # the x and the y differential
                 ndp, ndd = _diff_rk4(h, stages, diff[a:a + 3],
-                                     diff[a + 3:a + 6], six)
+                                     diff[a + 3:a + 6])
                 new_diff += ndp + ndd
 
         # Tilted-plane crossing test on the surviving segment (the
@@ -356,7 +387,7 @@ def trace_geodesics(
             f_new = npz - npy * k.tan_t
             crossing = survive & (f_old * f_new < 0)
         if record_hits and bool(crossing.any()):
-            t_frac = f_old / (f_old - f_new + eps_t)
+            t_frac = f_old * torch.reciprocal(f_old - f_new + 1e-8)
             hx = px + t_frac * (npx - px)
             hy = py + t_frac * (npy - py)
             hr2 = hx * hx + hy * hy

@@ -44,8 +44,8 @@ from .geodesic import (
 # Parameter layouts of the bhr_ray_march_* entry points (enum FParam /
 # IParam in the .cu source; checked against the library's own counts at
 # load).
-_FPARAMS = ("h_base", "rs", "r_floor", "rs2", "r_escape2", "max_affine",
-            "tan_t", "r_in2", "r_out2")
+_FPARAMS = ("h_base", "rs", "r_floor", "inv_rs", "inv_r_floor", "rs2",
+            "r_escape2", "max_affine", "tan_t", "r_in2", "r_out2")
 _IPARAMS = ("width", "height", "row0", "rows", "max_iter")
 
 # The kernel's instantiations; the C entry point of each is "bhr_" + name.
@@ -161,7 +161,7 @@ def trace_geodesics_cuda(
         ddx = ddy = None
         if with_differentials:
             ddx, ddy = primary_differentials_from_params(
-                cam_params, width, height, dirs, row_start, row_count)
+                cam_params, width, height, row_start, row_count)
         return trace_geodesics(cam_params[0:3], dirs, d_dir_dx0=ddx,
                                d_dir_dy0=ddy, **trace_kw, **variant)
     if dev.type != "cuda":

@@ -9,17 +9,27 @@ exits non-zero without printing a result:
 
 1. the card (``nvidia-smi`` name and power limit) and the versions;
 2. build the ray-march kernel template from ``bhr_tpu_torch/csrc`` and
-   time it; ptxas registers and spills of each instantiation;
+   time it; ptxas registers and spills of each instantiation (a spill
+   fails the run); each instantiation's loop in the SASS (``cuobjdump``):
+   its instructions, the MUFU ones and the FFMA/FADD/FMUL ones, and the
+   fewest instructions (MUFU ones) a surviving and a terminating step
+   issue (``parse_sass_loops``); the SMs and their maximum clock, for the
+   issue bounds of phase 5;
 3. every instantiation (slim, AA, no disk, and each with step counts) vs
-   its plain PyTorch version on the card, at 128x32 and at the 320x180
-   golden scene: rays whose captured/escaped/hit_count differ (pass at
-   <= 0.1%); on agreeing rays the largest difference of the escape
-   direction and hit features 0..4, which are of order 1 (pass at
-   <= 2e-3), and of features 5..10, plus t_frac at 11 for AA, which must
-   be equal (the differentials are of the order of a pixel's angle,
-   ~1e-3, so a 2e-3 bound would not catch a wrong one; the slim kernel
-   leaves t_frac at 11 zero, its plain version writes it); and step
-   counts, which must be equal;
+   its plain PyTorch version on the card, at the 128x32 tilt-15 parity
+   scene and at the 320x180 golden scene, with the tolerances of
+   ``bhr_tpu_torch.ops.trace_compare`` (``test_pallas_parity.py``'s
+   bounds and the port's own additions; the reasons are in that module's
+   docstring): categories
+   (captured, escaped, hit_count) and step counts equal at 128x32, at
+   most 0.1% of rays flipping or changing their step count at 320x180;
+   on the rays that agree, escape direction and hit features 0..4 within
+   2e-3, the AA differentials (features 5..10) within 5e-3 with a p99
+   relative difference of at most 1e-3 over values above 1e-6, t_frac
+   (feature 11, AA) within 2e-3 (the slim kernel leaves it zero, its
+   plain version writes it). For AA, the negative control: the same
+   check fed the kernel's trace with its x and y differentials swapped
+   must fail;
 4. the ``default``, ``aa`` and ``flare`` golden scenes through
    ``bhr_tpu_torch.modes.render_image`` on CUDA, each within max 5e-2 /
    mean 5e-4 of ``tests/goldens/e2e_cpu{,_aa,_flare}.npz``, with exactly
@@ -29,14 +39,25 @@ exits non-zero without printing a result:
    and the ``--anti_alias lod_radius --lens_flare`` frame through
    ``bhr_tpu_torch.cli.main``, and a Renderer without a disk texture;
    per-stage medians (CUDA events) of the default and the AA+flare
-   frames; every instantiation vs its plain version at FHD, the timed
-   runs of the step-count instantiations counted as their path; steps
-   per ray (mean, p99, max), the warps' lane efficiency and useful
-   ray-steps per second of kernel time;
+   frames; every instantiation vs its plain version at FHD (as phase 3,
+   but the agreeing rays over a float tolerance count with the flips
+   and step changes toward the 0.1%), the timed runs of the step-count
+   instantiations counted as their path; steps per ray (mean, p99, max),
+   the warps' lane efficiency and useful ray-steps per second of kernel
+   time; for AA, where the differentials' relative difference comes
+   from (split by distance from the photon ring and by the slot's size
+   against its vector; the plain initial differentials against float64);
+   each instantiation's bounds: FP32 operations at 67 TFLOP/s, the issue
+   bound (the fewest instructions each step issues, over 132 SMs x 4
+   schedulers x 32 lanes x the maximum SM clock) and the MUFU bound (16
+   lanes per SM), and the kernel's share of each;
 6. the tile path (``parallel.frames``): (a) every instantiation's FHD
-   row band 2 of 4 (rows 540-809) against the plain band and against
-   those rows of the full-frame kernel trace (0 flips, 0.0 difference,
-   equal steps), and each one's bound; (b) the ``default`` and ``aa``
+   row band 2 of 4 (rows 540-809) against those rows of the full-frame
+   kernel trace (the same per-ray code: equal) and against the plain
+   band (FHD's tolerances), and each one's bounds; the AA kernels' 4K
+   band 2 of 4 (rows 1080-1619 of 3840x2160, the shape of each of (c)'s
+   launches) against the plain band (FHD's tolerances, with AA's split
+   of the differentials' difference); (b) the ``default`` and ``aa``
    goldens through ``render_image_tiled`` in 4 bands (the goldens'
    bounds, exactly 4 launches); (c) the ``-r 4k --anti_alias lod_radius
    --aa_strength 1.0 --lens_flare`` still in 4 bands, with the counts
@@ -47,9 +68,9 @@ exits non-zero without printing a result:
    memory of both. The bands of (b) and (c) run on cuda:0..3 where four
    cards are visible, else all on cuda:0;
 7. a JSON line describing every instantiation at FHD (kernel, plain
-   version and bound times; ``launches`` sums the paths of phases 5 and
-   6), then the result line ``{"ok": true, "device": {...}}`` as the last
-   line.
+   version, FP32-operation bound and issue bound times; ``launches`` sums
+   the paths of phases 5 and 6), then the result line ``{"ok": true,
+   "device": {...}}`` as the last line.
 
 Imports torch, numpy and bhr_tpu_torch only.
 """
@@ -70,8 +91,6 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
-TOL_FLIP_FRAC = 1e-3  # rays allowed to change category
-TOL_FLOAT = 2e-3  # escape direction / hit features 0..4 on agreeing rays
 POV = (6.0, 0.0, 0.5)
 GOLDEN = dict(width=320, height=180, pov=POV, fov=60.0, step_size=0.1,
               r_max=10.0, n_stars=100, disk_inner_radius=2.0,
@@ -93,34 +112,150 @@ VARIANTS.update({f"{k}_steps": dict(v, record_step_counts=True)
 REPLACES = "bhr_tpu/ops/geodesic_pallas.py:582"  # pl.pallas_call of the kernel
 AA_FLAGS = ["--anti_alias", "lod_radius", "--aa_strength", "1.0", "--lens_flare"]
 TILES = 4  # row bands of the tile phase
+# Kernel launches before a timed run: the first kernels after a
+# host-bound phase ran up to ~18% slower than later ones at FHD.
+WARMUP = 2
 TOL_TILED = 2e-5  # tiled vs whole frame (test_sharded_frames.py's bound)
 
-# FP32 add/sub, mul, div and sqrt of csrc/ray_march.cu (fmin/fmax and
-# compares not counted), for the bound of each instantiation:
-# - per RK4 step: adaptive step 16, four accel_factor 36, stage slopes
-#   and positions 66, update 42, r^2 and affine tests 6, plus the
-#   disk-plane test 5 where hits are recorded; AA adds two diff_rk4 of
-#   168 each on every step that survives (not the terminating one);
-# - per ray: image plane and primary ray 62 (AA: 124 with the two
-#   differential rays), escape direction 9 per escaped ray;
-# - per recorded crossing: 12 (AA: 30 with the differentials' lerp).
-STEP_OPS = {"slim": 171, "aa": 171, "nodisk": 166}
+# FP32 operations of csrc/ray_march.cu for the bound of each
+# instantiation: an add, multiply, sqrt, rsqrt or reciprocal counts one,
+# a fused multiply-add two (its multiply and its add); fmin/fmax and
+# compares are not counted.
+# - per RK4 step: adaptive step 16 (r^2 5, two sqrt, 1/rs multiply,
+#   rs*, q^3 and 1 + 2q^3 4, reciprocal, h 2), four stages 35 (one
+#   rsqrt and 4 multiplies each, r^2 5 for stages 2-4), stage slopes and
+#   positions 66, update 42, r^2 and affine tests 6, plus the disk-plane
+#   test 5 where hits are recorded; AA adds two diff_rk4 of 168 each on
+#   every step that survives (not the terminating one);
+# - per ray: image plane and primary ray 63 (AA: 127 with the two
+#   differential rays), escape direction 10 per escaped ray;
+# - per recorded crossing: 13 (AA: 31 with the differentials' lerp).
+STEP_OPS = {"slim": 170, "aa": 170, "nodisk": 165}
 DIFF_STEP_OPS = {"slim": 0, "aa": 336, "nodisk": 0}
-RAY_OPS = {"slim": 62, "aa": 124, "nodisk": 62}
-HIT_OPS = {"slim": 12, "aa": 30, "nodisk": 0}
+RAY_OPS = {"slim": 63, "aa": 127, "nodisk": 63}
+ESCAPE_OPS = 10
+HIT_OPS = {"slim": 13, "aa": 31, "nodisk": 0}
 # Bytes written per ray: captured, escaped, escape_dir, hit_count, hits
 # (K=4 x 12 floats), plus steps for the _steps instantiations.
 RAY_BYTES = 1 + 1 + 12 + 4 + 4 * 12 * 4
 # NVIDIA H100 SXM published peaks (dense FP32 outside the tensor cores,
-# HBM3 bandwidth). The FP32 peak counts a fused multiply-add as two
-# operations; ray_march.cu is built with -fmad=false, so its adds and
-# muls issue one at a time, at half that rate (PEAK_FP32_UNFUSED). A
-# divide or square root counts as one operation but takes several
-# instructions, so either bound is below the kernel's true least time
-# and the shares printed are lower estimates.
+# counting a fused multiply-add as two operations; HBM3 bandwidth). A
+# square root or reciprocal counts as one operation but takes several
+# instructions, and the kernel's adds and multiplies do not all fuse, so
+# this bound is below the kernel's true least time. The issue bound
+# (the fewest SASS instructions the steps issue, over the SMs' issue
+# rate) is printed beside it.
 PEAK_FP32 = 67e12
-PEAK_FP32_UNFUSED = PEAK_FP32 / 2
 PEAK_BYTES = 3.35e12
+# Issue rates of one Hopper SM per clock: 4 schedulers each issue one
+# warp instruction (32 thread-instructions); the MUFU units (rsqrt, rcp,
+# the seeds of sqrt and divide) serve 16 threads.
+ISSUE_LANES_PER_SM = 4 * 32
+MUFU_LANES_PER_SM = 16
+
+
+def sass_loop_counts(lib_path: str) -> dict:
+    """:func:`parse_sass_loops` of the built library's ``cuobjdump -sass``."""
+    from bhr_tpu_torch import _build
+
+    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    return parse_sass_loops(subprocess.run(
+        [tool, "-sass", lib_path], capture_output=True, text=True, timeout=120,
+        check=True).stdout)
+
+
+def parse_sass_loops(sass: str) -> dict:
+    """Each instantiation's ray-march loop in ``cuobjdump -sass`` text,
+    from the loop's head to its back-branch (the backward branch that
+    spans the most code) -> {name: counts}, NOPs not counted:
+
+    - "total", "mufu", "fp32": the loop body's instructions, its MUFU ones
+      and its FFMA/FADD/FMUL ones — code a step rarely runs included;
+    - "step", "step_mufu": the fewest instructions (MUFU instructions) a
+      surviving step issues: the shortest way from the head to the
+      back-branch, which skips the crossing record and takes the fast
+      path of each correctly rounded sqrt and reciprocal. A way through a
+      CALL (the slow path's subroutine) is not taken: it issues the
+      callee too, more than the fast path it replaces;
+    - "last", "last_mufu": the fewest a terminating step issues, to the
+      first branch out of the loop (the capture or escape break).
+    """
+    from bhr_tpu_torch.ops.geodesic_cuda import kernel_name
+
+    counts = {}
+    for block in sass.split("Function : ")[1:]:
+        m = re.match(r"\S*ray_marchILb([01])ELb([01])ELb([01])E", block)
+        if not m:
+            continue
+        # (address, opcode, predicated, branch target or None)
+        labels, code = {}, []
+        for line in block.splitlines():
+            lab = re.match(r"\s*(\.L_x_\d+):", line)
+            ins = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+            if lab:
+                labels[lab.group(1)] = None
+            elif ins:
+                addr = int(ins.group(1), 16)
+                for k, v in labels.items():
+                    if v is None:
+                        labels[k] = addr
+                pred = re.match(r"@!?U?P\w+\s+", ins.group(2))
+                text = ins.group(2)[pred.end():] if pred else ins.group(2)
+                op = text.split()[0]
+                target = None
+                t = op.startswith("BRA") and re.search(
+                    r"0x([0-9a-f]+)|(\.L_x_\d+)", text[3:])
+                if t:
+                    target = int(t.group(1), 16) if t.group(1) else t.group(2)
+                code.append([addr, op, bool(pred) and pred.group(0)[:3] != "@PT",
+                             target])
+        for ins in code:
+            if isinstance(ins[3], str):
+                ins[3] = labels.get(ins[3])
+        head = tail = None
+        for addr, op, _, target in code:
+            if target is not None and target < addr and (
+                    head is None or addr - target > tail - head):
+                head, tail = target, addr
+        body = [ins for ins in code if head is not None and head <= ins[0] <= tail]
+        ops = [op for _, op, _, _ in body if op != "NOP"]
+
+        def fewest(weight):
+            """Shortest ways from the head over the body's forward edges:
+            (to the back-branch, to the first branch out of the loop)."""
+            index = {ins[0]: i for i, ins in enumerate(body)}
+            inf = float("inf")
+            dist = [inf] * len(body)
+            dist[0] = weight(body[0][1])
+            out = inf
+            for i, (addr, op, pred, target) in enumerate(body):
+                if dist[i] == inf or op.startswith("CALL"):
+                    continue
+                if target is not None and not head <= target <= tail or (
+                        op == "EXIT"):
+                    out = min(out, dist[i])
+                nxt = []
+                if target is not None and target > addr and target in index:
+                    nxt.append(index[target])
+                if pred or op.split(".")[0] not in ("BRA", "EXIT", "RET"):
+                    nxt.append(i + 1)
+                for j in nxt:
+                    if j < len(body):
+                        dist[j] = min(dist[j], dist[i] + weight(body[j][1]))
+            return dist[-1], out
+
+        step, last = fewest(lambda op: op != "NOP")
+        step_mufu, last_mufu = fewest(lambda op: op.startswith("MUFU"))
+        diff, record, steps = (c == "1" for c in m.groups())
+        counts[kernel_name(with_differentials=diff, record_hits=record,
+                           record_step_counts=steps)] = {
+            "total": len(ops),
+            "mufu": sum(op.startswith("MUFU") for op in ops),
+            "fp32": sum(op.split(".")[0] in ("FFMA", "FADD", "FMUL") for op in ops),
+            "step": step, "step_mufu": step_mufu, "last": last,
+            "last_mufu": last_mufu,
+        }
+    return counts
 
 
 def say(msg: str) -> None:
@@ -133,78 +268,181 @@ def check(ok: bool, msg: str) -> None:
 
 
 def cuda_ms(fn, reps: int = 1):
-    """(result of the last call, mean device ms per call) via CUDA events."""
+    """(result of the last call, mean device ms per call) via CUDA events.
+    Each call's result is dropped before the next call allocates its own,
+    so the caching allocator hands back the same blocks and no timed call
+    waits for a new device allocation."""
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     torch.cuda.synchronize()
     start.record()
+    out = None
     for _ in range(reps):
+        out = None
         out = fn()
     end.record()
     torch.cuda.synchronize()
     return out, start.elapsed_time(end) / reps
 
 
-def compare(kernel, plain, n_feat):
-    """(category flips, their fraction, largest diff on agreeing rays over
-    escape_dir and hit features 0..4 of every slot, largest diff over
-    features 5..n_feat-1, step-count mismatches)."""
-    flip = ((kernel.captured != plain.captured) | (kernel.escaped != plain.escaped)
-            | (kernel.hit_count != plain.hit_count))
-    n_flip = int(flip.sum())
-    agree = ~flip
-    diff = (kernel.hits[:, :n_feat] - plain.hits[:, :n_feat]).abs()[..., agree]
-    err = max(float((kernel.escape_dir - plain.escape_dir).abs()[agree].max()),
-              float(diff[:, :5].max()))
-    small_err = float(diff[:, 5:].max())
-    step_diff = 0
-    if plain.steps is not None:
-        step_diff = int((kernel.steps != plain.steps).sum())
-    return n_flip, n_flip / flip.numel(), err, small_err, step_diff
+def camera_tensor(w, h, fov, device="cuda"):
+    """The 14 camera floats of the POV camera on ``device``."""
+    from bhr_tpu_torch.camera import build_camera
+    from bhr_tpu_torch.ops.geodesic_cuda import camera_params
+
+    return torch.as_tensor(camera_params(build_camera(POV, fov, w, h)),
+                           device=device)
 
 
 def trace_pair(name, w, h, fov, tilt, h_base, r_escape, r_inner, r_outer, reps):
     """Kernel ``name`` and its plain version on the same camera tensor on
     the card -> (kernel, plain, kernel ms, plain ms, comparison)."""
-    from bhr_tpu_torch.camera import build_camera
     from bhr_tpu_torch.ops.geodesic import (
         primary_differentials_from_params,
         primary_rays_from_params,
         trace_geodesics,
     )
-    from bhr_tpu_torch.ops.geodesic_cuda import camera_params, trace_geodesics_cuda
+    from bhr_tpu_torch.ops.geodesic_cuda import trace_geodesics_cuda
 
-    cam = torch.as_tensor(camera_params(build_camera(POV, fov, w, h)), device="cuda")
+    cam = camera_tensor(w, h, fov)
     kw = dict(h_base=h_base, r_escape=r_escape, tilt_deg=tilt, r_inner=r_inner,
               r_outer=r_outer, **VARIANTS[name])
-    trace_geodesics_cuda(cam, width=w, height=h, **kw)  # warm-up
+    for _ in range(WARMUP):
+        trace_geodesics_cuda(cam, width=w, height=h, **kw)
     kernel, k_ms = cuda_ms(lambda: trace_geodesics_cuda(cam, width=w, height=h, **kw),
                            reps)
 
     def plain_fn():
         dirs = primary_rays_from_params(cam, w, h)
-        ddx, ddy = primary_differentials_from_params(cam, w, h, dirs)
+        ddx, ddy = primary_differentials_from_params(cam, w, h)
         return trace_geodesics(cam[0:3], dirs, d_dir_dx0=ddx, d_dir_dy0=ddy, **kw)
 
     plain, p_ms = cuda_ms(plain_fn)
-    n_feat = 12 if kw.get("with_differentials") else 11
-    return kernel, plain, k_ms, p_ms, compare(kernel, plain, n_feat)
+    return kernel, plain, k_ms, p_ms
 
 
-def check_pair(tag, name, result):
-    kernel, plain, k_ms, p_ms, (n_flip, frac, err, small_err, step_diff) = result
-    say(f"[kernel-vs-plain {tag}] {name}: flipped rays {n_flip} ({frac:.3%}) "
-        f"max float diff {err:.3e} (features 5.. {small_err:.3e}) "
-        f"step-count mismatches {step_diff}; "
-        f"kernel {k_ms:.3f} ms plain {p_ms:.3f} ms")
-    check(frac <= TOL_FLIP_FRAC, f"{tag} {name}: {n_flip} rays change category")
-    check(err <= TOL_FLOAT, f"{tag} {name}: float diff {err} > {TOL_FLOAT}")
-    check(small_err == 0.0, f"{tag} {name}: features 5.. differ by {small_err}")
-    check(step_diff == 0, f"{tag} {name}: {step_diff} step counts differ")
+def n_feat_of(name):
+    """Hit features a kernel shares with its plain version: the slim
+    kernel leaves t_frac (feature 11) zero, its plain version writes it."""
+    return 11 if name.startswith("ray_march_slim") else 12
+
+
+def check_diff(what, name, d, exact, outliers_allowed):
+    """Print a TraceDiff and fail on what it breaks of the tolerances."""
+    from bhr_tpu_torch.ops.trace_compare import failures
+
+    say(f"[{what}] {name}: flipped rays {d.flips}, step-count mismatches "
+        f"{d.steps_differ}, agreeing rays over a float tolerance {d.over} "
+        f"({(d.flips + d.steps_differ + d.over) / d.n_rays:.4%} of {d.n_rays}); "
+        f"largest escape dir / features 0..4 diff {d.float_err:.3e}, "
+        f"differentials {d.diff_err:.3e} (p99 relative {d.diff_rel_p99:.3e}), "
+        f"t_frac {d.tfrac_err:.3e}")
+    bad = failures(d, exact=exact, outliers_allowed=outliers_allowed)
+    check(not bad, f"{what} {name}: {'; '.join(bad)}")
+
+
+def check_control(what, kernel, plain):
+    """The negative control: the kernel's AA trace with its x and y
+    differentials swapped must fail the differential checks."""
+    from bhr_tpu_torch.ops.trace_compare import (
+        compare_traces,
+        failures,
+        swap_differentials,
+    )
+
+    d = compare_traces(swap_differentials(kernel), plain)
+    bad = failures(d, exact=False, outliers_allowed=True)
+    say(f"[{what}] negative control (x, y differentials swapped): {d.over} "
+        f"rays over an absolute tolerance, p99 relative difference of the "
+        f"others {d.diff_rel_p99:.3e}, largest {d.diff_err:.3e} -> "
+        f"{'rejected' if bad else 'ACCEPTED'}")
+    check(bool(bad), f"{what}: swapped differentials pass the checks")
+
+
+def initial_differentials_f64(cam, w, h, row_start, rows):
+    """The one-pixel direction deltas normalize(ray through (col + 1.5,
+    row + 0.5)) - normalize(ray through the pixel's center), and likewise
+    in y, in float64 from the 14 camera floats: the reference for the
+    float32 initial differentials' own rounding error."""
+    c = cam.to(torch.float64)
+    centre, right, up, fwd = c[0:3], c[3:6], c[6:9], c[9:12]
+    pw, ph = c[12], c[13]
+    top_left = centre + fwd - right * (pw * w / 2) + up * (ph * h / 2)
+    col = torch.arange(w, dtype=torch.float64, device=c.device)[None, :, None]
+    row = torch.arange(row_start, row_start + rows, dtype=torch.float64,
+                       device=c.device)[:, None, None]
+
+    def unit(ox, oy):
+        v = top_left + (col + ox) * pw * right - (row + oy) * ph * up - centre
+        return (v / v.norm(dim=-1, keepdim=True)).reshape(-1, 3)
+
+    v = unit(0.5, 0.5)
+    return unit(1.5, 0.5) - v, unit(0.5, 1.5) - v
+
+
+def differential_error_causes(what, kernel, plain, cam, w, h, row_start=0,
+                              rows=None):
+    """Where the AA differentials' relative difference (kernel vs plain)
+    comes from, printed: its p99 over the inlier rays split by the ray's
+    impact parameter b = |dir x pos| (near the photon ring, |b/b_c - 1| <
+    2%, or away from it) and by the slot's size against its 3-vector
+    (components under 1e-3 of the vector's norm, where a rounding error
+    of the vector is large against the component); and the plain
+    version's initial differentials against the same deltas in float64."""
+    from bhr_tpu_torch.constants import RS
+    from bhr_tpu_torch.ops.geodesic import (
+        primary_differentials_from_params,
+        primary_rays_from_params,
+    )
+    from bhr_tpu_torch.ops.trace_compare import (
+        DIFF_FLOOR,
+        diff_rel_p99,
+        inlier_rays,
+        p99,
+    )
+
+    rows = h if rows is None else rows
+    dirs = primary_rays_from_params(cam, w, h, row_start, rows)
+    b = torch.linalg.cross(dirs, cam[0:3].expand_as(dirs)).norm(dim=1)
+    near_ring = ((b / (1.5 * 3 ** 0.5 * RS) - 1).abs() < 0.02)[None, None]
+    k = kernel.hits.shape[0]
+    inliers = inlier_rays(kernel, plain)[None, None].expand(k, 6, -1)
+    ref = plain.hits[:, 5:11]
+    norm = ref.reshape(k, 2, 3, -1).norm(dim=2).repeat_interleave(3, dim=1)
+    small = ref.abs() < 1e-3 * norm
+    parts = {"all": inliers, "near the photon ring": inliers & near_ring,
+             "away from it": inliers & ~near_ring,
+             "components under 1e-3 of their vector": inliers & small,
+             "the other components": inliers & ~small}
+    say(f"[{what}] differentials' p99 relative difference over slots > "
+        f"{DIFF_FLOOR:g}: " + "; ".join(
+            f"{part} {diff_rel_p99(kernel, plain, sel):.3e} "
+            f"({int((sel & (ref.abs() > DIFF_FLOOR)).sum())} slots)"
+            for part, sel in parts.items()))
+    got = primary_differentials_from_params(cam, w, h, row_start, rows)
+    exact = initial_differentials_f64(cam, w, h, row_start, rows)
+    err = torch.cat([(g.double() - e).abs() for g, e in zip(got, exact)], 1)
+    size = torch.cat(exact, 1).abs()
+    sel = size > DIFF_FLOOR
+    say(f"[{what}] plain initial differentials vs float64: largest "
+        f"{float(err.max()):.3e} (values up to {float(size.max()):.3e}), "
+        f"p99 relative {p99(err[sel] / size[sel]):.3e}")
+
+
+def check_pair(tag, name, result, exact, outliers_allowed):
+    from bhr_tpu_torch.ops.trace_compare import compare_traces
+
+    kernel, plain, k_ms, p_ms = result
+    say(f"[kernel-vs-plain {tag}] {name}: kernel {k_ms:.3f} ms plain {p_ms:.3f} ms")
+    d = compare_traces(kernel, plain, n_feat_of(name))
+    check_diff(f"kernel-vs-plain {tag}", name, d, exact, outliers_allowed)
+    if name.startswith("ray_march_aa"):
+        check_control(f"kernel-vs-plain {tag} {name}", kernel, plain)
     if "nodisk" in name:
         check(not bool(kernel.hits.any()) and not bool(kernel.hit_count.any()),
               f"{tag} {name}: hits recorded without a disk")
     check((kernel.steps is not None) == name.endswith("_steps"),
           f"{tag} {name}: steps output")
+    return d
 
 
 def expect_launches(counts: dict, name: str, what: str) -> None:
@@ -277,21 +515,22 @@ def tiled_stage_times(cfg, devices, frames: int = 4):
 
 
 def check_band(name, full, w, h, fov, tilt, h_base, r_escape, r_inner, r_outer,
-               row_start, rows, reps):
+               row_start, rows, reps, device="cuda"):
     """Kernel ``name``'s row band [row_start, row_start + rows) against
-    the plain band and those rows of ``full``, the full-frame kernel
-    trace of the same camera: all must be equal. -> band kernel ms
-    (the plain band's ms is printed)."""
-    from bhr_tpu_torch.camera import build_camera
+    those rows of ``full``, the full-frame kernel trace of the same
+    camera (the same per-ray code: must be equal; None skips this), and
+    against the plain band (the full frame's tolerances; for AA, where
+    its differences come from is printed first). -> band kernel ms (the
+    plain band's ms is printed)."""
     from bhr_tpu_torch.ops.geodesic import (
         primary_differentials_from_params,
         primary_rays_from_params,
         trace_geodesics,
     )
-    from bhr_tpu_torch.ops.geodesic_cuda import camera_params, trace_geodesics_cuda
+    from bhr_tpu_torch.ops.geodesic_cuda import trace_geodesics_cuda
+    from bhr_tpu_torch.ops.trace_compare import compare_traces
 
-    cam = torch.as_tensor(camera_params(build_camera(POV, fov, w, h)),
-                          device=full.captured.device)
+    cam = camera_tensor(w, h, fov, device)
     kw = dict(h_base=h_base, r_escape=r_escape, tilt_deg=tilt, r_inner=r_inner,
               r_outer=r_outer, **VARIANTS[name])
 
@@ -301,50 +540,60 @@ def check_band(name, full, w, h, fov, tilt, h_base, r_escape, r_inner, r_outer,
 
     def plain_fn():
         dirs = primary_rays_from_params(cam, w, h, row_start, rows)
-        ddx, ddy = primary_differentials_from_params(cam, w, h, dirs, row_start,
-                                                     rows)
+        ddx, ddy = primary_differentials_from_params(cam, w, h, row_start, rows)
         return trace_geodesics(cam[0:3], dirs, d_dir_dx0=ddx, d_dir_dy0=ddy, **kw)
 
-    band_fn()  # warm-up
+    for _ in range(WARMUP):
+        band_fn()
     band, ms = cuda_ms(band_fn, reps)
     plain, p_ms = cuda_ms(plain_fn)
-    sel = slice(row_start * w, (row_start + rows) * w)
-    rows_of_full = full._replace(
-        **{f: getattr(full, f)[sel] for f in ("captured", "escaped", "escape_dir",
-                                               "hit_count")},
-        hits=full.hits[:, :, sel],
-        steps=None if full.steps is None else full.steps[sel])
-    # The slim kernel leaves t_frac (feature 11) zero, its plain version
-    # writes it.
-    n_feat = 11 if name.startswith("ray_march_slim") else 12
-    for ref_name, ref, nf in (("full-frame rows", rows_of_full, 12),
-                              ("plain band", plain, n_feat)):
-        n_flip, _, err, small_err, step_diff = compare(band, ref, nf)
-        say(f"[tile-band {w}x{h}] {name} rows {row_start}-{row_start + rows - 1} "
-            f"vs {ref_name}: flipped rays {n_flip} max float diff {err:.3e} "
-            f"(features 5.. {small_err:.3e}) step-count mismatches {step_diff}")
-        check(n_flip == 0 and err == 0.0 and small_err == 0.0 and step_diff == 0,
-              f"{name} band differs from the {ref_name}")
+    what = f"tile-band {w}x{h} rows {row_start}-{row_start + rows - 1}"
+    if full is not None:
+        sel = slice(row_start * w, (row_start + rows) * w)
+        rows_of_full = full._replace(
+            **{f: getattr(full, f)[sel] for f in ("captured", "escaped",
+                                                   "escape_dir", "hit_count")},
+            hits=full.hits[:, :, sel],
+            steps=None if full.steps is None else full.steps[sel])
+        for field in ("captured", "escaped", "escape_dir", "hit_count", "hits",
+                      "steps"):
+            got, ref = getattr(band, field), getattr(rows_of_full, field)
+            check(got is None and ref is None or torch.equal(got, ref),
+                  f"{what} {name}: {field} differs from the full-frame kernel's rows")
+        say(f"[{what}] {name} vs full-frame kernel rows: equal")
+    if name == "ray_march_aa":
+        differential_error_causes(f"{what} vs plain band {name}", band, plain,
+                                  cam, w, h, row_start, rows)
+    check_diff(f"{what} vs plain band", name,
+               compare_traces(band, plain, n_feat_of(name)), exact=False,
+               outliers_allowed=True)
+    if name.startswith("ray_march_aa"):
+        check_control(f"{what} vs plain band {name}", band, plain)
     check(band.captured.shape == (rows * w,), f"{name} band shape")
     say(f"[tile-band {w}x{h}] {name}: band kernel {ms:.3f} ms plain {p_ms:.3f} ms "
         f"({rows} of {h} rows)")
     return ms
 
 
-def bound(name, steps, trace, peak=PEAK_FP32):
+def terminated(trace) -> int:
+    """Rays of ``trace`` that were captured or escaped: each ends on a
+    step that breaks out of the loop."""
+    return int((trace.captured | trace.escaped).sum())
+
+
+def bound(name, steps, trace):
     """(least ms the card could take, "operations" or "bytes") for the
     instantiation ``name`` on this run's FHD trace: FP32 operations
-    (STEP_OPS etc., over the measured per-ray ``steps``) over ``peak``,
+    (STEP_OPS etc., over the measured per-ray ``steps``) over PEAK_FP32,
     and the bytes written over PEAK_BYTES."""
     base = name.removeprefix("ray_march_").removesuffix("_steps")
     n = steps.numel()
     total = float(steps.sum())
-    terminated = int((trace.captured | trace.escaped).sum())
-    ops = (STEP_OPS[base] * total + DIFF_STEP_OPS[base] * (total - terminated)
-           + RAY_OPS[base] * n + 9 * int(trace.escaped.sum())
+    ops = (STEP_OPS[base] * total + DIFF_STEP_OPS[base] * (total - terminated(trace))
+           + RAY_OPS[base] * n + ESCAPE_OPS * int(trace.escaped.sum())
            + HIT_OPS[base] * int(trace.hit_count.sum()))
     nbytes = 14 * 4 + n * (RAY_BYTES + (4 if name.endswith("_steps") else 0))
-    t_ops, t_bytes = ops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    t_ops, t_bytes = ops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -479,6 +728,38 @@ def main() -> int:
                 with_differentials=diff, record_hits=record, record_step_counts=steps))
         elif "registers" in line or "spill" in line:
             say(f"[build] ptxas: {line.strip()}")
+            spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            check(not spills or spills.groups() == ("0", "0"), f"ptxas spills: {line}")
+    sass = sass_loop_counts(built.path)
+    check(sorted(sass) == sorted(KERNELS), f"SASS functions {sorted(sass)}")
+    for name in KERNELS:
+        c = sass[name]
+        check(c["total"] > 0, f"{name}: no loop found in the SASS")
+        say(f"[build] SASS {name}: loop body {c['total']} instructions, "
+            f"{c['mufu']} MUFU, {c['fp32']} FFMA/FADD/FMUL; a surviving step "
+            f"issues at least {c['step']} ({c['step_mufu']} MUFU), a "
+            f"terminating one {c['last']} ({c['last_mufu']} MUFU)")
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.split()[0])
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    say(f"[build] {n_sms} SMs at max SM clock {clock_mhz:.0f} MHz: issue "
+        f"{n_sms * ISSUE_LANES_PER_SM * clock_mhz * 1e6:.4e} thread-instructions/s, "
+        f"MUFU {n_sms * MUFU_LANES_PER_SM * clock_mhz * 1e6:.4e}/s")
+
+    def issue_bounds(name, ray_steps, terminated):
+        """(issue bound ms, MUFU bound ms): the fewest SASS instructions
+        (MUFU ones) a step issues — a surviving step for ``ray_steps`` -
+        ``terminated``, a terminating one for ``terminated`` — over the
+        SMs' issue (MUFU) rate, every lane of every warp busy."""
+        rate = n_sms * clock_mhz * 1e6 / 1e3  # SM-clocks per ms
+        c = sass[name]
+        survived = ray_steps - terminated
+        return ((c["step"] * survived + c["last"] * terminated)
+                / (ISSUE_LANES_PER_SM * rate),
+                (c["step_mufu"] * survived + c["last_mufu"] * terminated)
+                / (MUFU_LANES_PER_SM * rate))
 
     # 3. kernel vs plain at the small shapes
     for tag, args, reps in (
@@ -486,7 +767,9 @@ def main() -> int:
         ("320x180", (320, 180, 60.0, 15.0, 0.1, escape_radius(10.0, POV), 2.0, 3.5), 20),
     ):
         for name in KERNELS:
-            check_pair(tag, name, trace_pair(name, *args, reps))
+            # Categories and step counts exact at the parity scene.
+            check_pair(tag, name, trace_pair(name, *args, reps),
+                       exact=tag == "128x32", outliers_allowed=False)
 
     # 4. the golden scenes on CUDA through the main path's entry point
     images = {}
@@ -566,7 +849,7 @@ def main() -> int:
 
     # Every instantiation vs its plain version at FHD. The step-count
     # instantiations run on no frame's path: their path is this
-    # diagnostic, counted over its timed kernel runs (warm-up + 3).
+    # diagnostic, counted over its kernel runs (WARMUP + 3 timed).
     # 6a. Then each one's row band 2 of 4 (rows 540-809) against the
     # plain band and those rows of the full-frame kernel trace.
     fhd, steps, traces, band_ms = {}, {}, {}, {}
@@ -577,11 +860,16 @@ def main() -> int:
         reset_counts()
         res = trace_pair(name, *fhd_args, 3)
         launched = dict(launches)
-        check_pair("1920x1080", name, res)
+        if name == "ray_march_aa":
+            differential_error_causes(f"kernel-vs-plain 1920x1080 {name}", res[0],
+                                      res[1], camera_tensor(1920, 1080, cfg.fov),
+                                      1920, 1080)
+        d = check_pair("1920x1080", name, res, exact=False, outliers_allowed=True)
         others = {k: v for k, v in launched.items() if k != name and v}
-        check(launched[name] == 4 and not others,
-              f"FHD {name} pair launched {launched}, expected {name} 4 times")
-        fhd[name] = res[2:]
+        check(launched[name] == WARMUP + 3 and not others,
+              f"FHD {name} pair launched {launched}, expected {name} "
+              f"{WARMUP + 3} times")
+        fhd[name] = (res[2], res[3], d)
         traces[name] = res[0]
         if name.endswith("_steps"):
             path_launches[name] = launched[name]
@@ -589,6 +877,19 @@ def main() -> int:
         band_ms[name] = check_band(name, res[0], *fhd_args, 2 * band_rows,
                                    band_rows, 3)
         del res
+
+    # The AA kernels' 4K band 2 of 4 (the shape of each of phase 6c's
+    # launches) against the plain band, with FHD's tolerances; 6c holds
+    # the tiled 4K frame against the whole one.
+    cfg_4k = cli.config_from_args(cli.build_parser().parse_args(
+        ["-r", "4k", *AA_FLAGS]))
+    w_4k, h_4k = cfg_4k.image_size
+    check(tuple(cfg_4k.pov) == POV, f"4K camera {cfg_4k.pov}")
+    for name in ("ray_march_aa", "ray_march_aa_steps"):
+        check_band(name, None, w_4k, h_4k, cfg_4k.fov, cfg_4k.disk_tilt,
+                   cfg_4k.step_size, escape_radius(cfg_4k.r_max, cfg_4k.pov),
+                   cfg_4k.disk_inner_radius, cfg_4k.disk_outer_radius,
+                   2 * h_4k // TILES, h_4k // TILES, 3)
 
     for name, s in steps.items():
         base = name.removesuffix("_steps")
@@ -604,11 +905,10 @@ def main() -> int:
             f"ray-steps/s of {base} kernel time ({fhd[base][0]:.3f} ms), "
             f"{total / (fhd[name][0] * 1e-3):.4e} of its own ({fhd[name][0]:.3f} ms)")
 
-    # The bound of each instantiation on this run's FHD data; the
-    # instantiations without step counts trace the same geodesics as
-    # their _steps twins (equal step counts, checked against the plain
-    # version above).
-    bounds = {}
+    # The bounds of each instantiation on this run's FHD data, over the
+    # step counts of its _steps twin: the same per-ray code, plus the
+    # counter.
+    bounds, issue = {}, {}
     sel = slice(2 * band_rows * 1920, 3 * band_rows * 1920)
     for name in KERNELS:
         twin = name if name.endswith("_steps") else name + "_steps"
@@ -616,18 +916,22 @@ def main() -> int:
             captured=traces[name].captured[sel], escaped=traces[name].escaped[sel],
             hit_count=traces[name].hit_count[sel])
         bounds[name] = bound(name, steps[twin], traces[name])
-        unfused = bound(name, steps[twin], traces[name], PEAK_FP32_UNFUSED)[0]
         band_bound = bound(name, steps[twin][sel], band_trace)
-        band_unfused = bound(name, steps[twin][sel], band_trace,
-                             PEAK_FP32_UNFUSED)[0]
+        issue[name] = issue_bounds(name, float(steps[twin].sum()),
+                                   terminated(traces[name]))
+        band_issue = issue_bounds(name, float(steps[twin][sel].sum()),
+                                  terminated(band_trace))
         say(f"[bound 1920x1080] {name}: {bounds[name][0]:.4f} ms by "
             f"{bounds[name][1]}; kernel {fhd[name][0]:.3f} ms "
-            f"({bounds[name][0] / fhd[name][0]:.1%} of the bound's rate; "
-            f"{unfused / fhd[name][0]:.1%} at the unfused FP32 rate, "
-            f"{unfused:.4f} ms); band 2 of {TILES}: {band_bound[0]:.4f} ms by "
+            f"({bounds[name][0] / fhd[name][0]:.1%} of the bound's rate); "
+            f"issue bound {issue[name][0]:.4f} ms "
+            f"({issue[name][0] / fhd[name][0]:.1%}), MUFU bound "
+            f"{issue[name][1]:.4f} ms ({issue[name][1] / fhd[name][0]:.1%}); "
+            f"band 2 of {TILES}: {band_bound[0]:.4f} ms by "
             f"{band_bound[1]}, kernel {band_ms[name]:.3f} ms "
-            f"({band_bound[0] / band_ms[name]:.1%}; unfused "
-            f"{band_unfused / band_ms[name]:.1%})")
+            f"({band_bound[0] / band_ms[name]:.1%}; issue bound "
+            f"{band_issue[0]:.4f} ms, {band_issue[0] / band_ms[name]:.1%}; "
+            f"MUFU {band_issue[1] / band_ms[name]:.1%})")
     del traces
 
     # 6b, 6c. the tile path
@@ -640,11 +944,13 @@ def main() -> int:
         "source": "bhr_tpu_torch/csrc/ray_march.cu",
         "replaces": REPLACES,
         "launches": path_launches[name],
-        "max_abs_err": max(fhd[name][2][2], fhd[name][2][3]),
+        "max_abs_err": max(fhd[name][2].float_err, fhd[name][2].diff_err,
+                           fhd[name][2].tfrac_err),
         "ms": fhd[name][0],
         "plain_ms": fhd[name][1],
         "bound_ms": bounds[name][0],
         "bound_by": bounds[name][1],
+        "issue_bound_ms": issue[name][0],
         "library_ms": None,  # no PyTorch call computes a ray march
     } for name in KERNELS]}))
     say(json.dumps({"ok": True, "device": {

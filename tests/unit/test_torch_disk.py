@@ -138,9 +138,21 @@ def test_dynamic_disk_advance_matches_through_interop(jax_system):
 def test_seeded_system_reproduces_jax_entity_state():
     """Built from the same seed (no interop), the port's host control
     plane packs the JAX system's entity rows."""
-    port = tdyn.DynamicDiskSystem(N_R, N_PHI, R_IN, R_OUT, seed=7)
+    port = tdyn.DynamicDiskSystem(N_R, N_PHI, R_IN, R_OUT, seed=7, device="cpu")
     ref = jdyn.DynamicDiskSystem(N_R, N_PHI, R_IN, R_OUT, seed=7)
     assert (port.az_freq, port.az_shear) == (ref.az_freq, ref.az_shear)
     assert port.generation_scale == ref.generation_scale == 2
     for a, b in zip(port._pack(0.0), ref._pack(0.0)):
         np.testing.assert_allclose(a, np.asarray(b), rtol=1e-6)
+
+
+def test_system_defaults_to_cuda_and_never_falls_back(monkeypatch):
+    """Without ``device`` the system asks for the GPU, as SceneConfig
+    does: on a host without one it raises instead of using the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device 'cuda'"):
+        tdyn.DynamicDiskSystem(32, 64, R_IN, R_OUT, seed=3)
+    cpu = tdyn.DynamicDiskSystem(32, 64, R_IN, R_OUT, seed=3, device="cpu")
+    assert cpu.device == torch.device("cpu")
+    assert tdyn.DynamicDiskSystem(32, 64, R_IN, R_OUT, seed=3,
+                                  device=torch.device("cpu")).device.type == "cpu"

@@ -11,7 +11,16 @@ and step counts must match exactly and float outputs agree within 2e-3
 (features 5..10) agree within ``test_pallas_parity.py``'s own 5e-3: XLA
 contracts multiply-adds into FMAs on the CPU, and the pure-JAX path
 starts its differentials from ``primary_rays_from_arrays``, a different
-formula from the Pallas kernel's that the port follows.
+formula from the Pallas kernel's that the port follows. The plain version
+computes the Pallas kernel's divide-free formulas (rsqrt per stage,
+reciprocals, 1/6 as a multiply); the pure-JAX tracer divides.
+
+The CLI default disk (2-15 at tilt 0, step 0.1, fov 90) reaches past the
+escape radius (12.04), the regime of the FHD main path; it is held to
+``bhr_tpu_torch.ops.trace_compare``'s tolerances at the parity scenes'
+strictness (exact categories and step counts), which the CUDA kernel is
+held to on the card, and that module's negative control (swapped x and y
+differentials) must fail against it.
 """
 
 import jax.numpy as jnp
@@ -24,11 +33,17 @@ from bhr_tpu.ops import geodesic as jgeo
 from bhr_tpu.ops.geodesic_pallas import trace_geodesics_pallas
 
 from bhr_tpu_torch.ops import geodesic as tgeo
+from bhr_tpu_torch import interop
 from bhr_tpu_torch.ops.geodesic_cuda import (
     KERNELS,
     camera_params,
     kernel_name,
     trace_geodesics_cuda,
+)
+from bhr_tpu_torch.ops.trace_compare import (
+    compare_traces,
+    failures,
+    swap_differentials,
 )
 
 SCENES = {"tilt15": (128, 32, 15.0), "tilt40": (128, 48, 40.0)}
@@ -168,6 +183,36 @@ def test_step_counts_match_jax(variant, reference):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("variant", [
+    {}, {"with_differentials": True}, {"record_hits": False},
+], ids=["slim", "aa", "nodisk"])
+def test_cli_default_disk_trace_matches_jax(variant):
+    """The CLI default disk (r_outer 15 > r_escape 12.04) at 64x36, fov 90,
+    step 0.1, against pure JAX: categories and step counts exact, floats
+    within trace_compare's tolerances."""
+    w, h = 64, 36
+    cam = build_camera([6.0, 0.0, 0.5], 90.0, w, h)
+    kw = dict(h_base=0.1, r_escape=12.04, tilt_deg=0.0, r_inner=2.0,
+              r_outer=15.0, record_step_counts=True, **variant)
+    res = _port_trace(cam, w, h, **kw)
+    ref = interop.trace_result_from_numpy(*(
+        np.asarray(x) for x in _jax_trace("pure_jax", cam, w, h, **kw)))
+    n_feat = 11 if not variant else 12  # slim: the kernel leaves t_frac 0
+    diff = compare_traces(res, ref, n_feat)
+    assert failures(diff, exact=True, outliers_allowed=False) == [], diff
+    # Rays near the photon ring integrate longer than typical rays.
+    assert int(res.steps.max()) > 1.5 * float(res.steps.float().median())
+    if variant.get("record_hits", True):
+        # The disk is recorded out to near the escape radius, where its
+        # outer edge (15) can no longer bind.
+        hits = res.hits[0, :2][:, res.hit_count > 0]
+        assert float((hits * hits).sum(0).sqrt().max()) > 10.0
+    if variant.get("with_differentials"):
+        assert diff.diff_rel_p99 > 0.0
+        control = compare_traces(swap_differentials(res), ref)
+        assert failures(control, exact=True, outliers_allowed=False)
+
+
 @pytest.mark.parametrize("scene", sorted(SCENES))
 def test_nodisk_trace_matches_jax(scene):
     w, h, tilt = SCENES[scene]
@@ -189,11 +234,38 @@ def test_nodisk_trace_matches_jax(scene):
 def test_primary_differentials_match_jax():
     cam = build_camera([6.0, 0.0, 0.5], 60.0, 96, 40)
     params = torch.as_tensor(camera_params(cam))
-    d0 = tgeo.primary_rays_from_params(params, 96, 40)
-    ddx, ddy = tgeo.primary_differentials_from_params(params, 96, 40, d0)
+    ddx, ddy = tgeo.primary_differentials_from_params(params, 96, 40)
     _, ref_x, ref_y = jgeo.primary_rays(cam)
     np.testing.assert_allclose(ddx.numpy(), np.asarray(ref_x), atol=1e-6)
     np.testing.assert_allclose(ddy.numpy(), np.asarray(ref_y), atol=1e-6)
+
+
+@pytest.mark.parametrize("width, height", [(1920, 1080), (3840, 2160)])
+def test_primary_differentials_hold_their_precision(width, height):
+    """The one-pixel deltas of four rows through the frame's centre at
+    fov 90 (a pixel's angle ~1e-3 at FHD, half that at 4K) against the
+    same deltas in float64: within 2e-6 of each delta's norm. Subtracting
+    two float32 unit vectors, as the Pallas kernel does, errs by up to
+    ~3e-7 absolute, several 1e-4 of such a delta."""
+    cam = build_camera([6.0, 0.0, 0.5], 90.0, width, height)
+    params = torch.as_tensor(camera_params(cam))
+    row0 = height // 2 - 2
+    got = tgeo.primary_differentials_from_params(params, width, height, row0, 4)
+
+    c = params.numpy().astype(np.float64)
+    centre, right, up, pw, ph = c[0:3], c[3:6], c[6:9], c[12], c[13]
+    top_left = centre + c[9:12] - right * (pw * width / 2) + up * (ph * height / 2)
+    col = np.arange(width, dtype=np.float64)[None, :, None]
+    row = np.arange(row0, row0 + 4, dtype=np.float64)[:, None, None]
+
+    def unit(ox, oy):
+        v = top_left + (col + ox) * pw * right - (row + oy) * ph * up - centre
+        return (v / np.linalg.norm(v, axis=-1, keepdims=True)).reshape(-1, 3)
+
+    for delta, (ox, oy) in zip(got, [(1.5, 0.5), (0.5, 1.5)]):
+        ref = unit(ox, oy) - unit(0.5, 0.5)
+        norm = np.linalg.norm(ref, axis=1, keepdims=True)
+        np.testing.assert_array_less(np.abs(delta.numpy() - ref) / norm, 2e-6)
 
 
 @pytest.mark.parametrize("band", [
