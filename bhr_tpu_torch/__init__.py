@@ -1,10 +1,10 @@
 """bhr_tpu_torch — the PyTorch/CUDA port of the bhr_tpu black-hole renderer.
 
-Renders the default still frame (Schwarzschild null-geodesic ray
-tracing, the procedural lifecycle accretion disk and star field,
-relativistic shading, bloom) on an NVIDIA GPU: the trace runs in a
-hand-written CUDA kernel (``csrc/ray_march.cu``), everything else in
-PyTorch. The JAX package ``bhr_tpu`` stays the reference; this package
+Renders still frames and resumable orbit videos (Schwarzschild
+null-geodesic ray tracing, the procedural lifecycle accretion disk and
+star field, relativistic shading, bloom, lens flare) on an NVIDIA GPU:
+the trace runs in a hand-written CUDA kernel (``csrc/ray_march.cu``),
+everything else in PyTorch. The JAX package ``bhr_tpu`` stays the reference; this package
 imports no JAX.
 """
 

@@ -1,15 +1,16 @@
-"""Build the CUDA sources of ``csrc/`` into a shared library, at first use.
+"""Build the sources of ``csrc/`` into shared libraries, at first use.
 
 Each ``csrc/*.cu`` file is one library with a plain C interface, built
 by ``nvcc`` for Hopper (``sm_90a``) and loaded with ``ctypes`` — seconds
 per build, where a source that includes PyTorch's headers takes minutes.
-The library lands in ``bhr_tpu_torch/_build/`` under a name keyed by a
-hash of the source and the flags, so a changed source or flag rebuilds
-and an unchanged one loads the existing file.
+Each ``csrc/*.cpp`` file is a host library built the same way by ``g++``
+(``build_host``). A library lands in ``bhr_tpu_torch/_build/`` under a
+name keyed by a hash of the source and the flags, so a changed source or
+flag rebuilds and an unchanged one loads the existing file.
 
-The build runs only from the sources in this package. A missing ``nvcc``
-or a compile error raises with the compiler's output; nothing degrades
-to another implementation.
+The build runs only from the sources in this package. A missing
+compiler or a compile error raises with the compiler's output; nothing
+here degrades to another implementation.
 """
 
 from __future__ import annotations
@@ -47,7 +48,7 @@ class Built(NamedTuple):
     lib: ctypes.CDLL
     path: str
     seconds: float  # compile time; 0.0 when an existing build was loaded
-    log: str  # nvcc's output (ptxas register and spill report)
+    log: str  # the compiler's output (nvcc: ptxas registers and spills)
 
 
 def find_nvcc() -> str:
@@ -64,17 +65,40 @@ def find_nvcc() -> str:
     )
 
 
+HOST_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
+
+
 def build(name: str) -> Built:
     """Compile ``csrc/<name>.cu`` unless its keyed build exists, and load it."""
-    src = os.path.join(CSRC_DIR, f"{name}.cu")
+    return _build(os.path.join(CSRC_DIR, f"{name}.cu"), find_nvcc, NVCC_FLAGS, ())
+
+
+def build_host(name: str, link_flags=()) -> Built:
+    """Compile the host source ``csrc/<name>.cpp`` with ``g++`` (and
+    ``link_flags`` after the source) unless its keyed build exists, and
+    load it. Raises RuntimeError when there is no ``g++`` or the build
+    fails, e.g. for a missing library or header."""
+    def find_gxx() -> str:
+        found = shutil.which("g++")
+        if not found:
+            raise RuntimeError("g++ not found on PATH")
+        return found
+
+    return _build(os.path.join(CSRC_DIR, f"{name}.cpp"), find_gxx, HOST_FLAGS,
+                  tuple(link_flags))
+
+
+def _build(src: str, find_compiler, flags, link_flags) -> Built:
+    name = os.path.splitext(os.path.basename(src))[0]
     with open(src, "rb") as f:
         source = f.read()
-    digest = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(
+        source + " ".join((*flags, *link_flags)).encode()).hexdigest()
     out = os.path.join(BUILD_DIR, f"lib{name}_{digest[:16]}.so")
     log_path = out + ".log"
     seconds = 0.0
     if not os.path.isfile(out):
-        nvcc = find_nvcc()
+        compiler = find_compiler()
         os.makedirs(BUILD_DIR, exist_ok=True)
         # Build to a temporary name and rename, so a concurrent or
         # interrupted build never leaves a half-written library behind.
@@ -83,13 +107,13 @@ def build(name: str) -> Built:
         t0 = time.perf_counter()
         try:
             proc = subprocess.run(
-                [nvcc, *NVCC_FLAGS, "-o", tmp, src],
+                [compiler, *flags, "-o", tmp, src, *link_flags],
                 capture_output=True, text=True,
             )
             if proc.returncode != 0:
                 raise RuntimeError(
-                    f"nvcc failed to build {src} (exit {proc.returncode}):\n"
-                    f"{proc.stdout}{proc.stderr}"
+                    f"{os.path.basename(compiler)} failed to build {src} "
+                    f"(exit {proc.returncode}):\n{proc.stdout}{proc.stderr}"
                 )
             with open(log_path, "w") as f:
                 f.write(proc.stdout + proc.stderr)

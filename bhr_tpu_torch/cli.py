@@ -1,25 +1,30 @@
-"""Command-line interface of the PyTorch/CUDA port (still frames).
+"""Command-line interface of the PyTorch/CUDA port (stills and video).
 
-The port of ``bhr_tpu/cli.py`` for the single-frame mode: the same scene
-flags and defaults (reference render.py:4518-4695), plus ``--width`` /
-``--height``, with ``--device`` choosing ``cuda`` (the default) or
-``cpu``. ``--tile_shards N`` renders the frame's pixel rows in N bands,
-one per visible device of the ``--device`` kind. The switches of modes
-the port does not have yet (--video, --interactive, --disk_model v2,
---disk_texture auto, --coordinator_address) are parsed and refused with
-NotImplementedError, naming the ROADMAP item that ports them; those
-modes' own settings return with them.
+The port of ``bhr_tpu/cli.py`` for the single-frame and video modes: the
+same scene flags and defaults (reference render.py:4518-4695), plus
+``--width`` / ``--height``, with ``--device`` choosing ``cuda`` (the
+default) or ``cpu``. ``--tile_shards N`` renders a still's pixel rows in
+N bands, one per visible device of the ``--device`` kind. ``--video``
+renders an orbit (``--orbit``) or static-camera video with resumable
+per-frame checkpoints (``--resume``). The switches of modes the port
+does not have yet (--interactive, --disk_model v2, --disk_texture auto,
+--coordinator_address) are parsed and refused with NotImplementedError,
+naming the ROADMAP item that ports them; those modes' own settings
+return with them.
 
 Usage:
     python -m bhr_tpu_torch.cli --pov 6 0 0.5 --fov 90 -r fhd -o out/frame.png
     python -m bhr_tpu_torch.cli -r fhd --anti_alias lod_radius --lens_flare
     python -m bhr_tpu_torch.cli -r sd --device cpu -o out/frame.png
     python -m bhr_tpu_torch.cli -r 4k --tile_shards 4   # on a 4-GPU host
+    python -m bhr_tpu_torch.cli --video --orbit -r fhd --n_frames 240 \\
+        --fps 24 -o out/orbit.mp4          # add --resume to continue
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 
 from .config import DEVICES, RESOLUTIONS, SceneConfig
@@ -44,7 +49,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--texture", "-t", type=str, default=None,
                    help="skybox texture path (default: procedural)")
     p.add_argument("--output", "-o", type=str, default="output/blackhole.png",
-                   help="output PNG path")
+                   help="output path (a PNG, or the video file)")
     p.add_argument("--step_size", "-s", type=float, default=0.1,
                    help="integration base step")
     p.add_argument("--r_max", type=float, default=10.0, help="escape radius")
@@ -68,13 +73,32 @@ def build_parser() -> argparse.ArgumentParser:
                    help="AA LOD multiplier in [0.5, 2.0]")
     p.add_argument("--device", "-d", type=str, default="cuda",
                    choices=list(DEVICES), help="torch device")
+    p.add_argument("--frame_shards", type=int, default=0,
+                   help="video frame shards across devices "
+                        "(0 = all devices, 1 = sequential)")
+    p.add_argument("--frames_per_dispatch", type=int, default=0,
+                   help="video frames per device per batch (0 = adaptive; "
+                        "smaller batches lose less to an interruption)")
     p.add_argument("--tile_shards", type=int, default=0,
                    help="single-frame row sharding over this many devices")
     p.add_argument("--video", action="store_true")
     p.add_argument("--interactive", action="store_true")
+    p.add_argument("--orbit", action="store_true")
+    p.add_argument("--orbit_degrees", type=float, default=360.0,
+                   help="total orbit sweep (negative = reverse)")
+    p.add_argument("--n_frames", type=int, default=3600)
+    p.add_argument("--fps", type=int, default=36)
+    p.add_argument("--video_crf", type=int, default=18,
+                   help="H.264 quality (x264 CRF, 0=lossless..51; "
+                        "default 18 ~ visually lossless)")
+    p.add_argument("--resume", action="store_true")
     p.add_argument("--disk_rotation_speed", type=float, default=0.1)
     p.add_argument("--coordinator_address", type=str, default=None,
                    help="multi-host rendering (not ported yet)")
+    p.add_argument("--num_processes", type=int, default=None,
+                   help="multi-host: total process count (not ported yet)")
+    p.add_argument("--process_id", type=int, default=None,
+                   help="multi-host: this process's rank (not ported yet)")
     p.add_argument("--seed", type=int, default=42)
     return p
 
@@ -100,21 +124,40 @@ def config_from_args(args: argparse.Namespace) -> SceneConfig:
         anti_alias=args.anti_alias,
         aa_strength=args.aa_strength,
         device=args.device,
+        frame_shards=args.frame_shards,
+        frames_per_dispatch=args.frames_per_dispatch,
         tile_shards=args.tile_shards,
         video=args.video,
         interactive=args.interactive,
+        orbit=args.orbit,
+        orbit_degrees=args.orbit_degrees,
+        n_frames=args.n_frames,
+        fps=args.fps,
+        video_crf=args.video_crf,
+        resume=args.resume,
         disk_rotation_speed=args.disk_rotation_speed,
         seed=args.seed,
     ).validated()
 
 
 def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if args.coordinator_address is None and (
+            args.num_processes is not None or args.process_id is not None):
+        parser.error("--num_processes/--process_id require "
+                     "--coordinator_address")
     if args.coordinator_address is not None:
         raise NotImplementedError(
-            "--coordinator_address (multi-host) is not ported to "
-            "bhr_tpu_torch yet (ROADMAP.md Queue 1 item 11)")
+            "--coordinator_address (multi-host video) is not ported to "
+            "bhr_tpu_torch yet (ROADMAP.md Queue 1 item 17)")
     config = config_from_args(args)
+
+    if config.video:
+        from .modes import render_video
+
+        print("Video stats: " + json.dumps(render_video(config)))
+        return 0
 
     from .modes import render_image
     from .utils.io import save_image

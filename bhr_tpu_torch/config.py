@@ -3,7 +3,7 @@
 The port of ``bhr_tpu/config.py``. The fields it shares and their
 validation rules are the same, so a scene means the same thing in both
 packages. It leaves out the settings of modes it does not have yet
-(video, V2 knobs, deprecated flags), and differs in two ways:
+(V2 knobs, deprecated flags), and differs in two ways:
 
 * ``device`` names a torch device, ``"cuda"`` (the default) or
   ``"cpu"``, and :func:`torch_device` refuses ``"cuda"`` on a host
@@ -69,21 +69,34 @@ class SceneConfig:
     anti_alias: str = "disabled"  # "disabled" | "lod_radius"
     aa_strength: float = 1.0
 
-    # Modes (video and interactive are refused until ported; their
-    # other settings return with them). The orbit settings place the
-    # cameras of parallel.frames.cameras_for_orbit.
+    # Modes (interactive is refused until ported; its other settings
+    # return with it). The orbit settings place the cameras of
+    # parallel.frames.cameras_for_orbit.
     video: bool = False
     interactive: bool = False
     orbit: bool = False
     orbit_degrees: float = 360.0
     n_frames: int = 3600
+    fps: int = 36
+    # H.264 quality of assembled videos (x264 CRF: 0 lossless .. 51
+    # worst; 18 ~ visually lossless), used by the native writer.
+    video_crf: int = 18
+    resume: bool = False
     output: str = "output/blackhole.png"
 
     # Device / parallelism
     device: str = "cuda"  # "cuda" | "cpu"
+    frame_shards: int = 0  # video: 0 = all visible devices, 1 = sequential
     # Single-frame spatial sharding: split the pixel rows of ONE frame
     # over this many devices ("tile" mesh axis; 0/1 = off).
     tile_shards: int = 0
+    # Video frames rendered per device per batch (0 = adaptive: small
+    # frames are batched until a batch carries ~4 FHD frames of pixels,
+    # capped at 16). progress.json is written once per batch, so smaller
+    # batches lose less to an interruption. Like the engine choice, this
+    # does not invalidate a resume: a frame's content does not depend on
+    # its batch.
+    frames_per_dispatch: int = 0
 
     @property
     def image_size(self) -> Tuple[int, int]:
@@ -124,6 +137,11 @@ class SceneConfig:
             raise ValueError(f"aa_strength must be in [0.5, 2.0], got {self.aa_strength}")
         if self.n_frames <= 0:
             raise ValueError(f"n_frames must be positive, got {self.n_frames}")
+        if self.fps <= 0:
+            raise ValueError(f"fps must be positive, got {self.fps}")
+        if not (0 <= self.video_crf <= 51):
+            raise ValueError(
+                f"video_crf must be in [0, 51], got {self.video_crf}")
         if not math.isfinite(self.orbit_degrees):
             raise ValueError(f"orbit_degrees must be finite, got {self.orbit_degrees}")
         if self.anti_alias not in ("disabled", "lod_radius"):
@@ -143,13 +161,27 @@ class SceneConfig:
         if self.tile_shards < 0:
             raise ValueError(
                 f"tile_shards must be >= 0, got {self.tile_shards}")
+        if self.frame_shards < 0:
+            raise ValueError(
+                f"frame_shards must be >= 0, got {self.frame_shards}")
+        if self.frame_shards > 1 and not self.video:
+            # An explicit shard request is never silently ignored: frame
+            # sharding belongs to the video engine; a still shards rows.
+            raise ValueError(
+                "frame_shards applies to --video only; for single-frame "
+                "spatial sharding use --tile_shards"
+            )
+        if self.frames_per_dispatch < 0:
+            raise ValueError(
+                f"frames_per_dispatch must be >= 0 (0 = adaptive), "
+                f"got {self.frames_per_dispatch}")
         if self.resolution not in RESOLUTIONS:
             raise ValueError(f"unknown resolution preset: {self.resolution}")
         if self.tile_shards > 1:
             if self.video or self.interactive:
                 raise ValueError(
                     "tile_shards applies to single-frame rendering only; "
-                    "video shards whole frames"
+                    "video shards whole frames (--frame_shards)"
                 )
             height = self.image_size[1]
             if height % self.tile_shards != 0:
@@ -177,11 +209,10 @@ class SceneConfig:
         return self.anti_alias != "disabled" and self.disk_model != "v2"
 
 
-# (predicate, feature, ROADMAP item that ports it). The still frame of a
-# texture-model scene, with AA and lens flare, whole or in row bands, is
-# what the port renders so far.
+# (predicate, feature, ROADMAP item that ports it). The still frame
+# (whole or in row bands) and the orbit video of a texture-model scene,
+# with AA and lens flare, are what the port renders so far.
 _UNPORTED = (
-    (lambda c: c.video, "--video", "Queue 1 item 11"),
     (lambda c: c.interactive, "--interactive", "Queue 1 item 13"),
     (lambda c: c.disk_model == "v2", "--disk_model v2", "Queue 1 item 12"),
     (lambda c: c.disk_texture == "auto", "--disk_texture auto",

@@ -71,6 +71,46 @@ def _recompute_stats(comp, edge, enable_rt: bool = True):
     return density_p98, struct_scale, torch.stack([struct_max, struct_p70], dim=1)
 
 
+def frame_texture(fil, hs, rt, omega_rows, edge, t: float, *, n_r: int,
+                  n_phi: int, az_freq: float, az_shear: float, r_inner: float,
+                  r_outer: float, generation_scale: int, color_temp: float,
+                  enable_rt: bool = True, stats=None, background=None):
+    """One frame's disk texture from packed entity rows, as tensors on
+    one device: ``fil`` (MF, 8), ``hs`` (MH, 8), ``rt`` (MR, 8) float32
+    (``pack_filaments`` / ``pack_timer_entities``), the per-row
+    ``omega_rows`` and ``edge``, at time ``t``.
+
+    ``stats`` is the (density_p98, struct_scale, row_stats) to normalize
+    with; None recomputes them from this frame's component field.
+    ``background`` is this frame's (7, n_r, n_phi) background stack where
+    the caller made it already (the video engine makes a batch's in one
+    pass of ``generate_background_components``); None makes it here. Both
+    ``DynamicDiskSystem.advance`` and the batched video engine
+    (``parallel/video.py``) make their textures here.
+
+    Returns ((n_r, n_phi, 4) RGBA texture, (13, n_r, n_phi) component
+    field, the stats used).
+    """
+    device = omega_rows.device
+    bg = background
+    if bg is None:
+        bg = generate_background_components(
+            n_r, n_phi, az_freq, az_shear, r_inner, r_outer, t,
+            generation_scale=generation_scale, device=device,
+        )
+    staging = accumulate_entity_layer(
+        fil, hs, rt, omega_rows, n_r, n_phi, phi_scale=generation_scale,
+    )
+    comp = assemble_comp(bg, staging)
+    if stats is None:
+        stats = _recompute_stats(comp, edge, enable_rt)
+    tex = compose_from_components(
+        comp, edge, *stats, enable_rt,
+        torch.tensor(color_temp, dtype=torch.float32, device=device),
+    )
+    return tex, comp, stats
+
+
 def adaptive_generation_scale(n_r: int, n_phi: int) -> int:
     """Low-res generation factor by texture size: 4 for 4K-class
     textures (n_phi >= 4096), else 2, from the reference's choice set
@@ -166,21 +206,21 @@ class DynamicDiskSystem:
             pack_timer_entities(self.factories["rt_spike"], now, MAX_RT_SPIKES),
         )
 
-    def _comp_field(self, fil, hs, rt, t: float) -> torch.Tensor:
-        """The (13, n_r, n_phi) component field at time ``t``."""
-        def dev(a):
-            return torch.as_tensor(a, device=self.device)
+    @property
+    def entity_count(self) -> int:
+        return sum(len(f.entities) for f in self.factories.values())
 
-        bg = generate_background_components(
-            self.n_r, self.n_phi, self.az_freq, self.az_shear,
-            self.r_inner, self.r_outer, t,
-            generation_scale=self.generation_scale, device=self.device,
+    def _frame_texture(self, t: float, stats):
+        """``frame_texture`` of this system's current entities at ``t``."""
+        fil, hs, rt = (torch.as_tensor(a, device=self.device)
+                       for a in self._pack(t))
+        return frame_texture(
+            fil, hs, rt, self.omega_rows, self.edge, t,
+            n_r=self.n_r, n_phi=self.n_phi, az_freq=self.az_freq,
+            az_shear=self.az_shear, r_inner=self.r_inner,
+            r_outer=self.r_outer, generation_scale=self.generation_scale,
+            color_temp=self.color_temp, enable_rt=self.enable_rt, stats=stats,
         )
-        staging = accumulate_entity_layer(
-            dev(fil), dev(hs), dev(rt), self.omega_rows, self.n_r, self.n_phi,
-            phi_scale=self.generation_scale,
-        )
-        return assemble_comp(bg, staging)
 
     def advance(self, t: float, dt: float,
                 recompute_stats: bool = False) -> torch.Tensor:
@@ -191,14 +231,20 @@ class DynamicDiskSystem:
         """
         for f in self.factories.values():
             f.tick(now=t, dt=dt)
-        self.comp = self._comp_field(*self._pack(t), t)
-        if recompute_stats:
-            self.density_p98, self.struct_scale, self.row_stats = (
-                _recompute_stats(self.comp, self.edge, self.enable_rt)
-            )
-        return compose_from_components(
-            self.comp, self.edge, self.density_p98, self.struct_scale,
-            self.row_stats, self.enable_rt,
-            torch.tensor(self.color_temp, dtype=torch.float32,
-                         device=self.device),
-        )
+        stats = None if recompute_stats else (
+            self.density_p98, self.struct_scale, self.row_stats)
+        tex, self.comp, stats = self._frame_texture(t, stats)
+        self.density_p98, self.struct_scale, self.row_stats = stats
+        return tex
+
+    def refresh_stats(self, t: float) -> None:
+        """Recompute the normalization stats from the current factory
+        state at time ``t`` without ticking the factories.
+
+        Video resume uses it: the replay loop ticks the factories frame
+        by frame and calls this at the frame where an uninterrupted run
+        last recomputed its stats, so the resumed frames normalize as
+        that run's did.
+        """
+        _, self.comp, stats = self._frame_texture(t, None)
+        self.density_p98, self.struct_scale, self.row_stats = stats

@@ -25,7 +25,7 @@ def generate_background_components(
     az_shear: float,
     r_inner: float,
     r_outer: float,
-    t: float,
+    t,
     generation_scale: int = 1,
     device=None,
 ) -> torch.Tensor:
@@ -33,6 +33,13 @@ def generate_background_components(
 
     Order in the output stack: [temp_base, spiral(0), spiral_temp(0),
     turbulence, turb_temp, az_hotspot, disturb_mod].
+
+    ``t`` is one time, or a sequence of F times, and then the stacks of
+    all F frames come back as (F, 7, n_r, n_phi) from one pass: every
+    operation here works element by element, so frame i of that pass
+    equals the call with ``t[i]`` alone bit for bit, and the pass
+    launches the device operations of one frame, not of F (the noise is
+    bound by their launches, not by their sizes).
 
     ``generation_scale`` > 1 evaluates the noise on an (n_r/s, n_phi/s)
     grid and repeats each value s x s times (reference render.py:78-87).
@@ -54,10 +61,15 @@ def generate_background_components(
     phi = phi.expand(gr, gp)
     # The scalars arrive as float32 values in the JAX program; round
     # them the same way before they meet the float32 grids.
-    az_freq, az_shear, r_inner, r_outer, t = (
+    az_freq, az_shear, r_inner, r_outer = (
         torch.tensor(v, dtype=f32, device=device)
-        for v in (az_freq, az_shear, r_inner, r_outer, t)
+        for v in (az_freq, az_shear, r_inner, r_outer)
     )
+    t = torch.as_tensor(t, dtype=f32).to(device)
+    if t.ndim not in (0, 1):
+        raise ValueError(f"t must be one time or a sequence, got {t.shape}")
+    if t.ndim == 1:
+        t = t[:, None, None]  # a leading frame axis on all that moves
 
     r_phys = r_inner + (r_outer - r_inner) * r
     omega = keplerian_omega(r_phys)
@@ -73,7 +85,7 @@ def generate_background_components(
     tb_noise = unit(fbm_3d(cx * 8.0, cy * 8.0, r * 8.0 + t * 0.05, 4, 0.6, 2.0))
     temp_base = decay * (0.85 + 0.15 * tb_noise) * 0.25
 
-    zeros = torch.zeros((gr, gp), dtype=f32, device=device)
+    zeros = torch.zeros_like(temp_base)
 
     # turbulence: six time-evolving scales.
     t_coarse = unit(fbm_3d(cx * 8.0, cy * 8.0, r * 4.0 + t * 0.06, 3, 0.45, 2.0)) * 0.08
@@ -105,9 +117,9 @@ def generate_background_components(
 
     stack = torch.stack(
         [temp_base, zeros, zeros, turb, 0.05 * turb, az_hotspot, disturb],
-        dim=0,
+        dim=-3,
     )
     if generation_scale > 1:
-        stack = stack.repeat_interleave(generation_scale, dim=1)
-        stack = stack.repeat_interleave(generation_scale, dim=2)
+        stack = stack.repeat_interleave(generation_scale, dim=-2)
+        stack = stack.repeat_interleave(generation_scale, dim=-1)
     return stack

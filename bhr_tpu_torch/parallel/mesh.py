@@ -14,8 +14,8 @@ after another on it. That is how the CPU tests and a one-card machine
 exercise a grid with T > 1: PyTorch cannot split one CPU (or one card)
 into the several virtual devices that ``tests/conftest.py`` gives JAX.
 
-``initialize_multihost`` is not ported here: only the sharded video
-fleet uses it, and it comes with the video slice.
+``initialize_multihost`` is not ported yet: only the multi-host video
+fleet uses it (ROADMAP.md Queue 1 item 17).
 """
 
 from __future__ import annotations

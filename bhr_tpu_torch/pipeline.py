@@ -169,7 +169,11 @@ class Renderer:
 
     ``device`` defaults to ``config.device``; "cuda" without a GPU
     raises. On CUDA the trace goes through the ray-march kernel, on the
-    CPU through its plain version.
+    CPU through its plain version. ``r_escape_override`` pins the
+    trace's escape radius for every frame (the orbit video passes
+    ``scene_escape_radius(config)``, so that both video engines trace
+    the same scene); by default each frame uses
+    ``escape_radius(r_max, cam_pos)``.
     """
 
     def __init__(
@@ -179,8 +183,10 @@ class Renderer:
         disk_tex,
         mip_levels: int = MIP_LEVELS,
         device=None,
+        r_escape_override: Optional[float] = None,
     ):
         self.config = config
+        self.r_escape_override = r_escape_override
         self.device = torch_device(config.device) if device is None else torch.device(device)
         self.width, self.height = config.image_size
         self.skybox = torch.as_tensor(np.asarray(skybox, np.float32),
@@ -258,8 +264,10 @@ class Renderer:
                    use_flare):
         use_diff = self.config.use_ray_differentials and not skip_differentials
         camera = self.camera(cam_pos, fov)
-        trace = self.trace(camera, escape_radius(self.config.r_max, cam_pos),
-                           use_diff)
+        r_escape = (escape_radius(self.config.r_max, cam_pos)
+                    if self.r_escape_override is None
+                    else self.r_escape_override)
+        trace = self.trace(camera, r_escape, use_diff)
         bg, disk_rgb = self.shade(trace, camera, frame, use_diff)
         return self.post(bg, disk_rgb, not skip_bloom, use_flare)
 

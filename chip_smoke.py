@@ -67,9 +67,33 @@ exits non-zero without printing a result:
    as ``render_image_tiled``'s ``on_stage`` callback marks them) and peak
    memory of both. The bands of (b) and (c) run on cuda:0..3 where four
    cards are visible, else all on cuda:0;
-7. a JSON line describing every instantiation at FHD (kernel, plain
+7. the orbit video (``parallel/video.py``, ``modes.render_video``), with
+   the plain trace's calls counted beside the kernels' launches (none is
+   allowed): first the background noise of 4 frames in one pass, as the
+   batched engine makes it, bit-equal to 4 per-frame calls at the FHD
+   video's texture size, and the time of both; (a) the golden 8-frame orbit of ``tests/e2e_render.py``
+   through ``render_video_sharded``, PNG frames 0 and 4 read back with
+   ``decode_png_rgb8`` against ``tests/goldens/e2e_cpu_video.npz`` (max
+   5e-2 / mean 5e-4), exactly 8 ``ray_march_slim`` launches; (b) resume:
+   the same video in batches of 4, then frames 4-7 removed and
+   ``progress.json`` cut back to frames 0-3, and a ``resume`` run: 4
+   launches, all 8 PNGs byte-equal to the uninterrupted run's; a changed
+   seed with ``resume`` wipes and renders 8; (c) the sequential engine
+   (``frame_shards=1``) on the same scene: frame 0 within one uint8 step
+   of the batched engine's; (d) at full width through
+   ``bhr_tpu_torch.cli.main``, each with the counts set to 0 just before
+   and read just after: ``--video --orbit -r fhd --n_frames 24 --fps 24``
+   (24 ``ray_march_slim`` launches) and the same with 8 frames and
+   ``--anti_alias lod_radius --aa_strength 1.0 --lens_flare`` (8
+   ``ray_march_aa``): wall seconds, frames/s end to end and steady, the
+   per-frame stage medians, the main thread's wait on the writers, which
+   assembler finished the file (with the native one, ``probe_video`` must
+   give the frame count and size), the zlib levels' time and size on one
+   FHD frame, the default video through the sequential engine and,
+   where several cards are visible, on one card beside all of them;
+8. a JSON line describing every instantiation at FHD (kernel, plain
    version, FP32-operation bound and issue bound times; ``launches`` sums
-   the paths of phases 5 and 6), then the result line ``{"ok": true,
+   the paths of phases 5, 6 and 7d), then the result line ``{"ok": true,
    "device": {...}}`` as the last line.
 
 Imports torch, numpy and bhr_tpu_torch only.
@@ -77,6 +101,8 @@ Imports torch, numpy and bhr_tpu_torch only.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import re
@@ -116,6 +142,12 @@ TILES = 4  # row bands of the tile phase
 # host-bound phase ran up to ~18% slower than later ones at FHD.
 WARMUP = 2
 TOL_TILED = 2e-5  # tiled vs whole frame (test_sharded_frames.py's bound)
+# The golden video of tests/e2e_render.py: an 8-frame 45-degree orbit of
+# the golden scene in one batch.
+GOLDEN_VIDEO = dict(GOLDEN, video=True, orbit=True, orbit_degrees=45.0,
+                    n_frames=8, fps=24, frame_shards=1, frames_per_dispatch=8)
+FHD_VIDEOS = (("default", 24, [], "ray_march_slim"),
+              ("aa_flare", 8, AA_FLAGS, "ray_march_aa"))
 
 # FP32 operations of csrc/ray_march.cu for the bound of each
 # instantiation: an add, multiply, sqrt, rsqrt or reciprocal counts one,
@@ -684,6 +716,253 @@ def tile_phase(launches, reset_counts) -> int:
     return launched["ray_march_aa"]
 
 
+class _Tee(io.StringIO):
+    """Keeps what is printed while passing it on."""
+
+    def write(self, text):
+        sys.__stdout__.write(text)
+        sys.__stdout__.flush()
+        return super().write(text)
+
+
+def expect_video_launches(counts, name, n, plain_calls, what):
+    others = {k: v for k, v in counts.items() if k != name and v}
+    check(counts[name] == n and not others and not plain_calls[0],
+          f"{what} launched {counts} and ran the plain trace {plain_calls[0]} "
+          f"times, expected {name} {n} times and nothing else")
+
+
+def video_phase(launches, reset_counts) -> dict:
+    """Phase 7; -> {kernel: launches of the full-width video paths}."""
+    import dataclasses
+
+    import bhr_tpu_torch.cli as cli
+    from bhr_tpu_torch import native
+    from bhr_tpu_torch.config import SceneConfig
+    from bhr_tpu_torch.modes import render_video, video_temp_paths
+    from bhr_tpu_torch.ops import geodesic_cuda
+    from bhr_tpu_torch.parallel.video import render_video_sharded
+    from bhr_tpu_torch.utils.io import (
+        decode_png_rgb8,
+        encode_png_rgb8,
+        load_png_rgb8,
+        write_json_atomic,
+    )
+
+    # Every call of the plain trace is counted while the videos render.
+    plain_calls = [0]
+    real_plain = geodesic_cuda.trace_geodesics
+
+    def counted_plain(*args, **kwargs):
+        plain_calls[0] += 1
+        return real_plain(*args, **kwargs)
+
+    def reset():
+        reset_counts()
+        plain_calls[0] = 0
+
+    def frame_files(cfg):
+        temp_dir, progress_file = video_temp_paths(cfg.output)
+        return [os.path.join(temp_dir, f"frame_{f:04d}.png")
+                for f in range(cfg.n_frames)], progress_file
+
+    def read_bytes(paths):
+        out = []
+        for path in paths:
+            with open(path, "rb") as f:
+                out.append(f.read())
+        return out
+
+    def video_cfg(name, **changes):
+        return SceneConfig(device="cuda", output=os.path.join(
+            "output", "torch_video", f"{name}.mp4"), **{**GOLDEN_VIDEO, **changes})
+
+    # The batched engine makes the background noise of a batch's frames in
+    # one pass over a leading frame axis: at the FHD video's texture size
+    # it must equal the per-frame calls bit for bit.
+    from bhr_tpu_torch.config import compute_disk_texture_resolution
+    from bhr_tpu_torch.ops.background import generate_background_components
+
+    n_phi, n_r = compute_disk_texture_resolution(1920, 1080, POV, 90.0, 2.0, 15.0)
+    times = np.asarray([f * 0.1 for f in (20, 21, 22, 23)], np.float32)
+    bg_args = (n_r, n_phi, 3.0, 2.7, 2.0, 15.0)
+    bg_kw = dict(generation_scale=2, device="cuda")
+    generate_background_components(*bg_args, times, **bg_kw)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batch = generate_background_components(*bg_args, times, **bg_kw)
+    torch.cuda.synchronize()
+    t_batch = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    singles = [generate_background_components(*bg_args, float(t), **bg_kw)
+               for t in times]
+    torch.cuda.synchronize()
+    t_singles = time.perf_counter() - t0
+    equal = [bool(torch.equal(batch[i], one)) for i, one in enumerate(singles)]
+    say(f"[video background] {n_phi}x{n_r} noise of 4 frames: one pass "
+        f"{t_batch * 1e3:.1f} ms, 4 per-frame calls {t_singles * 1e3:.1f} ms "
+        f"(host clock, synchronized); bit-equal {equal}")
+    check(all(equal), "the batch's background differs from the per-frame calls")
+    del batch, singles
+
+    geodesic_cuda.trace_geodesics = counted_plain
+    try:
+        # 7a. the golden video through the batched engine
+        cfg = video_cfg("golden")
+        reset()
+        stats = render_video_sharded(cfg)
+        launched = dict(launches)
+        paths, _ = frame_files(cfg)
+        img = np.concatenate([load_png_rgb8(paths[f]).astype(np.float32) / 255.0
+                              for f in (0, 4)], axis=0)
+        golden = np.load(os.path.join(ROOT, "tests", "goldens",
+                                      "e2e_cpu_video.npz"))["image"]
+        check(img.shape == golden.shape == (360, 320, 3), f"golden video {img.shape}")
+        diff = np.abs(img.astype(np.float64) - golden.astype(np.float64))
+        say(f"[video golden] PNG frames 0 and 4 vs e2e_cpu_video.npz max "
+            f"{diff.max():.3e} mean {diff.mean():.3e}; ray_march_slim launches "
+            f"{launched['ray_march_slim']}; assembler {stats['assembler']}")
+        check(diff.max() <= 5e-2 and diff.mean() <= 5e-4,
+              "golden video outside bounds")
+        check(stats["frames"] == 8 and stats["padded"] == 0, f"golden video {stats}")
+        expect_video_launches(launched, "ray_march_slim", 8, plain_calls,
+                              "golden video")
+        one_batch = read_bytes(paths)
+
+        # 7b. resume: batches of 4, the second batch lost, then a changed seed
+        cfg = video_cfg("resume", frames_per_dispatch=4)
+        reset()
+        render_video_sharded(cfg)
+        expect_video_launches(dict(launches), "ray_march_slim", 8, plain_calls,
+                              "video in batches of 4")
+        paths, progress_file = frame_files(cfg)
+        whole = read_bytes(paths)
+        check(whole == one_batch, "frames differ between batches of 8 and of 4")
+        for path in paths[4:]:
+            os.remove(path)
+        with open(progress_file) as f:
+            progress = json.load(f)
+        check(progress["completed"] == list(range(8)), f"progress {progress}")
+        write_json_atomic(progress_file, dict(progress, completed=[0, 1, 2, 3]))
+        reset()
+        stats = render_video_sharded(dataclasses.replace(cfg, resume=True))
+        launched = dict(launches)
+        resumed = read_bytes(paths)
+        say(f"[video resume] frames 4-7 rendered again: ray_march_slim launches "
+            f"{launched['ray_march_slim']}; {sum(a == b for a, b in zip(whole, resumed))} "
+            f"of 8 PNGs byte-equal to the uninterrupted run's; assembler "
+            f"{stats['assembler']}")
+        check(stats["frames"] == 4, f"resume rendered {stats['frames']} frames")
+        expect_video_launches(launched, "ray_march_slim", 4, plain_calls, "resume")
+        check(resumed == whole, "resumed PNGs differ from the uninterrupted run's")
+        reset()
+        stats = render_video_sharded(dataclasses.replace(cfg, resume=True, seed=7))
+        launched = dict(launches)
+        say(f"[video resume] changed seed with resume: wiped, "
+            f"{stats['frames']} frames, ray_march_slim launches "
+            f"{launched['ray_march_slim']}")
+        expect_video_launches(launched, "ray_march_slim", 8, plain_calls,
+                              "resume with a changed seed")
+        check(stats["frames"] == 8 and read_bytes(paths)[0] != whole[0],
+              "a changed seed did not render the video anew")
+
+        # 7c. the sequential engine on the same scene
+        cfg = video_cfg("sequential")
+        reset()
+        stats = render_video(cfg)
+        launched = dict(launches)
+        paths, _ = frame_files(cfg)
+        a = load_png_rgb8(paths[0]).astype(np.int32)
+        b = decode_png_rgb8(one_batch[0]).astype(np.int32)
+        say(f"[video engines] sequential vs batched frame 0: "
+            f"{(a != b).mean():.4%} of values differ, largest step "
+            f"{np.abs(a - b).max()}; ray_march_slim launches "
+            f"{launched['ray_march_slim']}")
+        check(np.abs(a - b).max() <= 1, "engines differ by more than one uint8 step")
+        expect_video_launches(launched, "ray_march_slim", 8, plain_calls,
+                              "sequential video")
+
+        # 7d. full width, through the CLI
+        path_launches = {}
+        n_cards = torch.cuda.device_count()
+        for tag, n_frames, flags, expected in FHD_VIDEOS:
+            out = os.path.join("output", "torch_video", f"fhd_{tag}.mp4")
+            argv = ["--video", "--orbit", "-r", "fhd", "--n_frames", str(n_frames),
+                    "--fps", "24", *flags, "-o", out]
+            tee = _Tee()
+            reset()
+            with contextlib.redirect_stdout(tee):
+                check(cli.main(argv) == 0, "CLI exit code")
+            launched = dict(launches)
+            lines = [ln for ln in tee.getvalue().splitlines()
+                     if ln.startswith("Video stats: ")]
+            check(len(lines) == 1, f"FHD video {tag}: no stats line")
+            stats = json.loads(lines[0][len("Video stats: "):])
+            # (With several cards a short video may be one batch: no
+            # steady rate then.)
+            steady = ("n/a (one batch)" if stats["steady_fps"] is None
+                      else f"{stats['steady_fps']:.3f}")
+            say(f"[video fhd {tag}] {' '.join(argv[:-2])} on {n_cards} card(s): "
+                f"{stats['frames']} frames (+{stats['padded']} padding) in "
+                f"{stats['wall_s']:.2f} s, {stats['fps']:.3f} frames/s end to end, "
+                f"{steady} steady; per-frame medians ms: "
+                + ", ".join(f"{k} {v:.3f}" for k, v in stats["stage_ms"].items()
+                            if v is not None)
+                + f"; main thread waited on the writers {stats['writer_wait_s']:.3f} s; "
+                f"{expected} launches {launched[expected]}, plain trace calls "
+                f"{plain_calls[0]}")
+            names = {"native": "native", "ffmpeg": "ffmpeg", "mjpeg": "mjpeg",
+                     "none": "none: frames kept"}
+            say(f"[video fhd {tag}] assembler: {names[stats['assembler']]}")
+            expect_video_launches(launched, expected, n_frames + stats["padded"],
+                                  plain_calls, f"FHD video {tag}")
+            check(stats["frames"] == n_frames, f"FHD video {tag}: {stats}")
+            cfg = cli.config_from_args(cli.build_parser().parse_args(argv))
+            paths, progress_file = frame_files(cfg)
+            with open(progress_file) as f:
+                check(json.load(f)["completed"] == list(range(n_frames)),
+                      f"FHD video {tag}: progress.json incomplete")
+            last = load_png_rgb8(paths[-1])
+            check(last.shape == (1080, 1920, 3) and last.max() > 128,
+                  f"FHD video {tag}: last frame")
+            if stats["assembler"] == "native":
+                probe = native.probe_video(out)
+                say(f"[video fhd {tag}] probe_video: {probe}, "
+                    f"{os.path.getsize(out)} bytes")
+                check(probe == (n_frames, 1920, 1080), f"probe {probe}")
+            path_launches[expected] = launched[expected]
+            if tag == "default":
+                for level in (1, 2, 6):
+                    t0 = time.perf_counter()
+                    size = len(encode_png_rgb8(last, level=level))
+                    say(f"[video png] one FHD frame at zlib level {level}: "
+                        f"{(time.perf_counter() - t0) * 1e3:.1f} ms, {size} bytes")
+                # The same video through the sequential engine: what the
+                # batched engine's overlap of rendering and writing buys.
+                reset()
+                seq = render_video(dataclasses.replace(
+                    cfg, frame_shards=1, output=out.replace(".mp4", "_sequential.mp4")))
+                say(f"[video fhd {tag}] sequential engine (--frame_shards 1): "
+                    f"{seq['frames']} frames in {seq['wall_s']:.2f} s, "
+                    f"{seq['frames'] / seq['wall_s']:.3f} frames/s end to end "
+                    f"(batched: {stats['fps']:.3f}); ray_march_slim launches "
+                    f"{launches['ray_march_slim']}")
+                expect_video_launches(dict(launches), expected, n_frames,
+                                      plain_calls, f"sequential FHD video {tag}")
+                if n_cards > 1:
+                    # The same video on one card of the several.
+                    reset()
+                    one = render_video_sharded(
+                        dataclasses.replace(cfg, output=out.replace(".mp4", "_1card.mp4")),
+                        devices=[torch.device("cuda", 0)])
+                    say(f"[video fhd {tag}] on 1 card: {one['fps']:.3f} frames/s end "
+                        f"to end, {one['steady_fps']:.3f} steady (all {n_cards}: "
+                        f"{stats['fps']:.3f}, {steady})")
+        return path_launches
+    finally:
+        geodesic_cuda.trace_geodesics = real_plain
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -937,7 +1216,11 @@ def main() -> int:
     # 6b, 6c. the tile path
     path_launches["ray_march_aa"] += tile_phase(launches, reset_counts)
 
-    # 7. results
+    # 7. the orbit video
+    for name, n in video_phase(launches, reset_counts).items():
+        path_launches[name] += n
+
+    # 8. results
     say(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

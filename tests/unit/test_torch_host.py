@@ -44,6 +44,7 @@ def test_port_imports_no_jax():
         "import sys\n"
         "import bhr_tpu_torch, bhr_tpu_torch.cli, bhr_tpu_torch.modes\n"
         "import bhr_tpu_torch.interop, bhr_tpu_torch.ops.geodesic_cuda\n"
+        "import bhr_tpu_torch.parallel.video, bhr_tpu_torch.native\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'bhr_tpu'))\n"
         "print(bad)\n"

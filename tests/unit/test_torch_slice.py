@@ -273,7 +273,7 @@ def test_cli_renders_ported_features(flags, tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--video"], ["--interactive"], ["--disk_model", "v2"],
+    ["--video", "--disk_model", "v2"], ["--interactive"], ["--disk_model", "v2"],
     ["--disk_texture", "auto"], ["--coordinator_address", "localhost:1234"],
 ])
 def test_cli_refuses_unported_features(flags, tmp_path):
