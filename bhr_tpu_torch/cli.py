@@ -6,17 +6,19 @@ same scene flags and defaults (reference render.py:4518-4695), plus
 default) or ``cpu``. ``--tile_shards N`` renders a still's pixel rows in
 N bands, one per visible device of the ``--device`` kind. ``--video``
 renders an orbit (``--orbit``) or static-camera video with resumable
-per-frame checkpoints (``--resume``). The switches of modes the port
-does not have yet (--interactive, --disk_model v2, --disk_texture auto,
---coordinator_address) are parsed and refused with NotImplementedError,
-naming the ROADMAP item that ports them; those modes' own settings
-return with them.
+per-frame checkpoints (``--resume``). ``--disk_model v2`` shades the disk
+by volume integration (the ``--v2_*`` group) in all of these. The
+switches of modes the port does not have yet (--interactive,
+--disk_texture auto, --coordinator_address) are parsed and refused with
+NotImplementedError, naming the ROADMAP item that ports them; those
+modes' own settings return with them.
 
 Usage:
     python -m bhr_tpu_torch.cli --pov 6 0 0.5 --fov 90 -r fhd -o out/frame.png
     python -m bhr_tpu_torch.cli -r fhd --anti_alias lod_radius --lens_flare
     python -m bhr_tpu_torch.cli -r sd --device cpu -o out/frame.png
     python -m bhr_tpu_torch.cli -r 4k --tile_shards 4   # on a 4-GPU host
+    python -m bhr_tpu_torch.cli -r fhd --disk_model v2 --v2_palette scientific
     python -m bhr_tpu_torch.cli --video --orbit -r fhd --n_frames 240 \\
         --fps 24 -o out/orbit.mp4          # add --resume to continue
 """
@@ -59,7 +61,40 @@ def build_parser() -> argparse.ArgumentParser:
                    help="external disk texture (static single-frame only)")
     p.add_argument("--disk_model", type=str, default="texture",
                    choices=["texture", "v2"],
-                   help="disk shading model (v2 is not ported yet)")
+                   help="disk shading model: the lifecycle texture, or "
+                        "the v2 volume integrator")
+    v2 = p.add_argument_group(
+        "disk_v2", "volume-model knobs (with --disk_model v2); "
+        "mirrors DiskV2Params/DiskV2StructureParams"
+    )
+    v2.add_argument("--v2_palette", type=str, default="cinematic",
+                    choices=["scientific", "cinematic"],
+                    help="V2 intensity/temperature -> RGB mapping")
+    v2.add_argument("--v2_samples", type=int, default=8,
+                    help="V2 slab quadrature samples per disk crossing")
+    v2.add_argument("--v2_h0", type=float, default=0.05,
+                    help="V2 thickness fraction at r ~ r_in")
+    v2.add_argument("--v2_beta_h", type=float, default=0.05,
+                    help="V2 thickness growth power-law index")
+    v2.add_argument("--v2_rho_power", type=float, default=1.0,
+                    help="V2 midplane density radial decay exponent")
+    v2.add_argument("--v2_temp_scale", type=float, default=1.0)
+    v2.add_argument("--v2_omega_scale", type=float, default=1.0)
+    v2.add_argument("--v2_edge_softness", type=float, default=0.1,
+                    help="V2 smooth-edge width fraction, [0, 0.5)")
+    v2.add_argument("--v2_structure", action="store_true",
+                    help="take the V2 structure modulation layer's "
+                         "strengths (m=1/m=2 modes, shear texture, "
+                         "hotspots) from the flags below")
+    v2.add_argument("--v2_mode1_strength", type=float, default=0.03)
+    v2.add_argument("--v2_mode2_strength", type=float, default=0.05)
+    v2.add_argument("--v2_shear_strength", type=float, default=0.22)
+    v2.add_argument("--v2_shear_components", type=int, default=8)
+    v2.add_argument("--v2_hotspot_strength", type=float, default=0.16)
+    v2.add_argument("--v2_hotspot_count", type=int, default=8)
+    v2.add_argument("--v2_hotspot_phi_sigma", type=float, default=0.18)
+    v2.add_argument("--v2_hotspot_logr_sigma", type=float, default=0.12)
+    v2.add_argument("--v2_hotspot_inner_bias", type=float, default=2.0)
     p.add_argument("--disk_inner_radius", "--ar1", dest="disk_inner_radius",
                    type=float, default=R_DISK_INNER_DEFAULT)
     p.add_argument("--disk_outer_radius", "--ar2", dest="disk_outer_radius",
@@ -117,6 +152,8 @@ def config_from_args(args: argparse.Namespace) -> SceneConfig:
         n_stars=args.n_stars,
         disk_texture=args.disk_texture,
         disk_model=args.disk_model,
+        **{name: value for name, value in vars(args).items()
+           if name.startswith("v2_")},
         disk_inner_radius=args.disk_inner_radius,
         disk_outer_radius=args.disk_outer_radius,
         disk_tilt=args.disk_tilt,

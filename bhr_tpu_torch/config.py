@@ -3,7 +3,8 @@
 The port of ``bhr_tpu/config.py``. The fields it shares and their
 validation rules are the same, so a scene means the same thing in both
 packages. It leaves out the settings of modes it does not have yet
-(V2 knobs, deprecated flags), and differs in two ways:
+(interactive, the static texture generator, deprecated flags), and
+differs in two ways:
 
 * ``device`` names a torch device, ``"cuda"`` (the default) or
   ``"cpu"``, and :func:`torch_device` refuses ``"cuda"`` on a host
@@ -56,13 +57,41 @@ class SceneConfig:
     skybox_seed: int = 42
 
     # Disk
-    disk_model: str = "texture"  # "texture" (V1) | "v2" (not ported yet)
+    disk_model: str = "texture"  # "texture" (V1) | "v2" (volume model)
     disk_texture: Optional[str] = None
     disk_inner_radius: float = R_DISK_INNER_DEFAULT
     disk_outer_radius: float = R_DISK_OUTER_DEFAULT
     disk_tilt: float = 0.0
     disk_rotation_speed: float = 0.1
     seed: int = 42
+
+    # Disk V2 (volume model) surface: mirrors DiskV2Params /
+    # DiskV2StructureParams (reference disk_v2/params.py:12-144) plus
+    # the renderer knobs (palette, quadrature samples). r_in/r_out come
+    # from disk_inner_radius/disk_outer_radius.
+    v2_palette: str = "cinematic"  # "scientific" | "cinematic"
+    v2_samples: int = 8  # slab quadrature samples per crossing
+    v2_h0: float = 0.05
+    v2_beta_h: float = 0.05
+    v2_rho_power: float = 1.0
+    v2_temp_scale: float = 1.0
+    v2_omega_scale: float = 1.0
+    v2_edge_softness: float = 0.1
+    # Structure modulation layer; strengths validated by
+    # DiskV2StructureParams.__post_init__. As in bhr_tpu, with
+    # v2_structure off the integrator still modulates, with
+    # DiskV2StructureParams' default strengths (the fields below hold the
+    # same defaults, so the switch matters once one of them is changed).
+    v2_structure: bool = False
+    v2_mode1_strength: float = 0.03
+    v2_mode2_strength: float = 0.05
+    v2_shear_strength: float = 0.22
+    v2_shear_components: int = 8
+    v2_hotspot_strength: float = 0.16
+    v2_hotspot_count: int = 8
+    v2_hotspot_phi_sigma: float = 0.18
+    v2_hotspot_logr_sigma: float = 0.12
+    v2_hotspot_inner_bias: float = 2.0
 
     # Post-FX / AA
     lens_flare: bool = False
@@ -148,6 +177,21 @@ class SceneConfig:
             raise ValueError(f"unknown anti_alias mode: {self.anti_alias}")
         if self.disk_model not in ("texture", "v2"):
             raise ValueError(f"unknown disk_model: {self.disk_model}")
+        if self.v2_palette not in ("scientific", "cinematic"):
+            raise ValueError(
+                f"v2_palette must be 'scientific' or 'cinematic', "
+                f"got {self.v2_palette!r}"
+            )
+        if self.v2_samples <= 0:
+            raise ValueError(
+                f"v2_samples must be positive, got {self.v2_samples}"
+            )
+        if self.disk_model == "v2":
+            # Construct the param objects so their validators run at
+            # config time (fail fast on e.g. mode strengths summing
+            # past 1) instead of deep inside a frame.
+            self.v2_params()
+            self.v2_structure_params()
         if self.disk_texture and (self.video or self.interactive):
             raise ValueError(
                 "disk_texture only supports static single-frame rendering; "
@@ -200,6 +244,39 @@ class SceneConfig:
                 )
         return self
 
+    def v2_params(self):
+        """Build the DiskV2Params for this scene (disk_model='v2')."""
+        from .models.disk_v2.params import DiskV2Params
+
+        return DiskV2Params(
+            r_in=float(self.disk_inner_radius),
+            r_out=float(self.disk_outer_radius),
+            h0=float(self.v2_h0),
+            beta_h=float(self.v2_beta_h),
+            rho_power=float(self.v2_rho_power),
+            temp_scale=float(self.v2_temp_scale),
+            omega_scale=float(self.v2_omega_scale),
+            edge_softness=float(self.v2_edge_softness),
+        )
+
+    def v2_structure_params(self):
+        """DiskV2StructureParams when v2_structure is on, else None."""
+        if not self.v2_structure:
+            return None
+        from .models.disk_v2.params import DiskV2StructureParams
+
+        return DiskV2StructureParams(
+            mode1_strength=float(self.v2_mode1_strength),
+            mode2_strength=float(self.v2_mode2_strength),
+            shear_strength=float(self.v2_shear_strength),
+            shear_components=int(self.v2_shear_components),
+            hotspot_strength=float(self.v2_hotspot_strength),
+            hotspot_count=int(self.v2_hotspot_count),
+            hotspot_phi_sigma=float(self.v2_hotspot_phi_sigma),
+            hotspot_logr_sigma=float(self.v2_hotspot_logr_sigma),
+            hotspot_inner_bias=float(self.v2_hotspot_inner_bias),
+        )
+
     @property
     def use_ray_differentials(self) -> bool:
         """Whether frames trace the two ray differentials (AA).
@@ -210,11 +287,11 @@ class SceneConfig:
 
 
 # (predicate, feature, ROADMAP item that ports it). The still frame
-# (whole or in row bands) and the orbit video of a texture-model scene,
-# with AA and lens flare, are what the port renders so far.
+# (whole or in row bands) and the orbit video, of a texture-model scene
+# with AA and lens flare or of a V2 volume disk, are what the port
+# renders so far.
 _UNPORTED = (
     (lambda c: c.interactive, "--interactive", "Queue 1 item 13"),
-    (lambda c: c.disk_model == "v2", "--disk_model v2", "Queue 1 item 12"),
     (lambda c: c.disk_texture == "auto", "--disk_texture auto",
      "Queue 1 item 14"),
 )

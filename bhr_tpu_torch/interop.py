@@ -9,12 +9,13 @@ packages can be fed the same inputs and compared. No JAX is imported.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from .config import SceneConfig
+from .models.disk_v2.params import DiskV2Params, DiskV2StructureParams
 from .models.dynamic_disk import DynamicDiskSystem
 from .ops.geodesic import TraceResult
 from .pipeline import Renderer
@@ -98,10 +99,25 @@ def dynamic_disk_from_state(
     return system
 
 
+def disk_v2_params_from_dicts(params: dict, structure: Optional[dict] = None
+                              ) -> Tuple[DiskV2Params,
+                                         Optional[DiskV2StructureParams]]:
+    """The port's (DiskV2Params, DiskV2StructureParams or None) from
+    ``bhr_tpu``'s V2 dataclasses given as plain dicts of Python numbers
+    (``dataclasses.asdict`` on the caller's side); ``structure`` None
+    stays None. The fields are validated as at construction."""
+    return (DiskV2Params(**params),
+            None if structure is None else DiskV2StructureParams(**structure))
+
+
 def renderer_from_numpy(config: SceneConfig, skybox: np.ndarray,
                         disk_tex, device="cpu") -> Renderer:
     """A Renderer over NumPy assets: the (H, W, 3) skybox and the
-    (n_r, n_phi, 4) disk texture (or None)."""
+    (n_r, n_phi, 4) disk texture, or None for a scene without a disk
+    and for a ``disk_model="v2"`` config, which shades by volume
+    integration and takes no texture."""
+    if config.disk_model == "v2" and disk_tex is not None:
+        raise ValueError("a disk_model='v2' config takes no disk texture")
     return Renderer(config, np.asarray(skybox, np.float32),
                     None if disk_tex is None else np.asarray(disk_tex, np.float32),
                     device=device)

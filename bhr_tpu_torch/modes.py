@@ -5,8 +5,7 @@ The port of ``bhr_tpu/modes.py`` (reference ``render_image``,
 render.py:4031-4076, and ``render_video``, render.py:4356-4511): the
 same scene semantics, resume protocol and file layout
 (``.frames_<md5>/``, ``progress.json`` invalidated by a parameter
-change), so either package can resume the other's texture-model video.
-The interactive mode is not ported yet; ``SceneConfig.validated``
+change), so either package can resume the other's video. The interactive mode is not ported yet; ``SceneConfig.validated``
 refuses it.
 """
 
@@ -44,16 +43,21 @@ from .utils.io import (
 
 
 def _scene_assets(config: SceneConfig, device) -> tuple:
-    """(skybox, disk_tex, dynamic_or_None) for a config.
+    """(skybox, disk_tex_or_None, dynamic_or_None) for a config.
 
-    An explicit ``disk_texture`` path is loaded or fails loudly;
-    otherwise the disk comes from the lifecycle system (a zero
-    placeholder texture until it advances).
+    One texture-source policy for every engine: V2 -> no texture and no
+    lifecycle system; an explicit ``disk_texture`` path is loaded or
+    fails loudly; otherwise the disk comes from the lifecycle system (a
+    zero placeholder texture until it advances).
     """
     width, height = config.image_size
     skybox, _, _ = load_or_generate_skybox(
         config.texture, 2048, 1024, config.n_stars, seed=config.skybox_seed
     )
+    if config.disk_model == "v2":
+        # V2 shades by volume integration: no disk texture
+        # (config.validated() rejects v2 + disk_texture).
+        return skybox, None, None
     disk_tex = load_disk_texture(config.disk_texture)
     if config.disk_texture is not None and disk_tex is None:
         # A path typo must not render the procedural disk instead.
@@ -88,7 +92,8 @@ def _make_renderer(config: SceneConfig,
 def render_image(config: SceneConfig) -> np.ndarray:
     """Render one frame -> (H, W, 3) float32 in [0, 1]; the disk texture
     is generated by the lifecycle system at t=0 unless an external disk
-    texture is given. With ``tile_shards > 1`` the frame's pixel rows
+    texture is given (a V2 scene has neither: it shades by volume
+    integration). With ``tile_shards > 1`` the frame's pixel rows
     shard over the visible devices (``parallel.frames.render_image_tiled``):
     the same image, traced band by band."""
     config = config.validated()
@@ -129,8 +134,7 @@ def video_temp_paths(output_path: str) -> tuple:
 def video_resume_params(config: SceneConfig, *, sharded: bool = False) -> Dict:
     """The parameters ``progress.json`` is invalidated by: everything
     that determines a frame's content, so a resumed run never mixes two
-    scenes. The same keys and value types as ``bhr_tpu``'s for a
-    texture-model scene (its ``v2`` block comes with the V2 disk).
+    scenes. The same keys and value types as ``bhr_tpu``'s.
     ``sharded`` records which engine rendered the frames and is left out
     of the comparison (the scene is the same across engines).
     """
@@ -169,6 +173,30 @@ def video_resume_params(config: SceneConfig, *, sharded: bool = False) -> Dict:
             config.disk_inner_radius, config.disk_outer_radius,
         )
         params["generation_scale"] = adaptive_generation_scale(n_r, n_phi)
+    if config.disk_model == "v2":
+        # Every V2 knob changes frame content. Keyed only for V2 runs so
+        # that a texture-model progress file is the same with or without
+        # the V2 surface.
+        params["v2"] = {
+            "palette": config.v2_palette,
+            "samples": int(config.v2_samples),
+            "h0": float(config.v2_h0),
+            "beta_h": float(config.v2_beta_h),
+            "rho_power": float(config.v2_rho_power),
+            "temp_scale": float(config.v2_temp_scale),
+            "omega_scale": float(config.v2_omega_scale),
+            "edge_softness": float(config.v2_edge_softness),
+            "structure": bool(config.v2_structure),
+            "mode1_strength": float(config.v2_mode1_strength),
+            "mode2_strength": float(config.v2_mode2_strength),
+            "shear_strength": float(config.v2_shear_strength),
+            "shear_components": int(config.v2_shear_components),
+            "hotspot_strength": float(config.v2_hotspot_strength),
+            "hotspot_count": int(config.v2_hotspot_count),
+            "hotspot_phi_sigma": float(config.v2_hotspot_phi_sigma),
+            "hotspot_logr_sigma": float(config.v2_hotspot_logr_sigma),
+            "hotspot_inner_bias": float(config.v2_hotspot_inner_bias),
+        }
     return params
 
 
@@ -223,15 +251,17 @@ def sharded_video_eligible(config: SceneConfig) -> bool:
     (``parallel/video.py``): on a CUDA device, or when more than one
     frame shard is asked for or visible. ``frame_shards=1`` opts out
     into the sequential per-frame loop, which is also what
-    ``device="cpu"`` runs by default (one CPU device). ``device="cuda"``
-    without a GPU raises here."""
+    ``device="cpu"`` runs by default (one CPU device). Both disk models
+    are eligible: the texture model renders its lifecycle texture per
+    frame, V2 is trace + ``shade_frame_v2``, a function of camera and
+    time alone. ``device="cuda"`` without a GPU raises here."""
     import torch
 
     device = torch_device(config.device)
     n_devices = torch.cuda.device_count() if device.type == "cuda" else 1
     return (
         config.disk_texture is None
-        and config.disk_model == "texture"
+        and config.disk_model in ("texture", "v2")
         and (config.frame_shards > 1
              or (config.frame_shards == 0
                  and (n_devices > 1 or device.type == "cuda")))
@@ -247,7 +277,8 @@ def render_video(config: SceneConfig,
     output; ``progress.json`` records {params, completed} and is
     invalidated when the parameters change. Interrupt and run again with
     ``config.resume=True`` to continue; the lifecycle state is re-created
-    by replaying the factory ticks to the resume point.
+    by replaying the factory ticks to the resume point (a V2 scene has
+    none: its frame is a function of the camera and the frame index).
 
     Returns the run's statistics: ``frames`` rendered in this run,
     ``wall_s``, ``steady_fps`` (None for the sequential engine),
@@ -360,7 +391,8 @@ def _render_video_frames(config, temp_dir, renderer, dynamic, writer,
             tex = dynamic.advance(t, dt, recompute_stats=(frame % 60 == 0))
             renderer.update_disk_texture(tex)
         # A lifecycle texture already carries its rotation (advected to
-        # time t), so it renders at frame 0.
+        # time t), so it renders at frame 0; a V2 disk advects its
+        # structure through t_offset = frame * dt.
         img = renderer.render(
             cam_pos, config.fov, frame=(0 if dynamic is not None else frame)
         )

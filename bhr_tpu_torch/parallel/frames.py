@@ -27,7 +27,13 @@ from ..constants import MAX_DISK_CROSSINGS
 from ..ops.geodesic import CAM_PARAMS
 from ..ops.geodesic_cuda import camera_params, trace_geodesics_cuda
 from ..ops.sampling import build_mipmaps
-from ..pipeline import MIP_LEVELS, post_process, shade_frame
+from ..pipeline import (
+    MIP_LEVELS,
+    post_process,
+    shade_frame,
+    shade_frame_v2,
+    v2_shade_args,
+)
 from .mesh import FrameMesh, cuda_devices, make_frame_mesh
 
 
@@ -61,7 +67,10 @@ def build_sharded_frame_renderer(mesh: FrameMesh, config: SceneConfig,
     each in mesh.shape["tile"] row bands, over ``mesh``. ``use_diff``
     traces the ray differentials and shades with the mip LOD;
     ``has_disk=False`` traces without hit recording and shades the sky
-    only. The route of each band follows its device: the ray-march kernel
+    only. A ``disk_model="v2"`` config shades every band with the volume
+    integrator (``pipeline.shade_frame_v2``) and takes no texture:
+    ``disk_mips`` is None and ``t_offsets`` are the structure pattern's
+    advection times. The route of each band follows its device: the ray-march kernel
     on CUDA, its plain version on the CPU.
 
     Call it as ``render(skybox, disk_mips, cam_pack, t_offsets,
@@ -94,28 +103,34 @@ def build_sharded_frame_renderer(mesh: FrameMesh, config: SceneConfig,
         with_differentials=use_diff, max_crossings=MAX_DISK_CROSSINGS,
         record_hits=has_disk,
     )
+    is_v2 = config.disk_model == "v2"
+    v2_args = v2_shade_args(config) if is_v2 else None
 
     def replicas(x) -> dict:
         x = torch.as_tensor(x, dtype=torch.float32).contiguous()
         return {d: x.to(d) for d in distinct}
 
     def shade(trace, skybox, mips, cam, t_offset) -> torch.Tensor:
-        bg, disk_rgb, _ = shade_frame(
-            trace, skybox, mips, cam[0:3],
-            r_inner=float(config.disk_inner_radius),
-            r_outer=float(config.disk_outer_radius),
-            tilt_deg=float(config.disk_tilt),
-            t_offset=t_offset,
-            use_lod=use_diff,
-            aa_strength=float(config.aa_strength),
-        )
+        if is_v2:
+            bg, disk_rgb, _ = shade_frame_v2(
+                trace, skybox, cam[0:3], t_offset=t_offset, **v2_args)
+        else:
+            bg, disk_rgb, _ = shade_frame(
+                trace, skybox, mips, cam[0:3],
+                r_inner=float(config.disk_inner_radius),
+                r_outer=float(config.disk_outer_radius),
+                tilt_deg=float(config.disk_tilt),
+                t_offset=t_offset,
+                use_lod=use_diff,
+                aa_strength=float(config.aa_strength),
+            )
         shape = (rows, width, 3)
         if return_layers:
             return torch.stack([bg.reshape(shape), disk_rgb.reshape(shape)])
         return torch.clamp(bg + disk_rgb, 0.0, 1.0).reshape(shape)
 
     def render(skybox, disk_mips, cam_pack, t_offsets, on_stage=None):
-        if disk_mips is None and has_disk:
+        if disk_mips is None and has_disk and not is_v2:
             raise ValueError(
                 "disk_mips is required when the renderer was built with "
                 "has_disk=True")
@@ -137,7 +152,8 @@ def build_sharded_frame_renderer(mesh: FrameMesh, config: SceneConfig,
         # copy between two launches would wait for the first.
         cams = replicas(cam_pack)
         skyboxes = replicas(skybox)
-        mips = replicas(disk_mips) if has_disk else dict.fromkeys(distinct)
+        mips = (replicas(disk_mips) if disk_mips is not None
+                else dict.fromkeys(distinct))
         mark("replicas")
         frames = [None] * n_frames
         for step in range(frames_per_device):
@@ -179,8 +195,9 @@ def render_image_tiled(config: SceneConfig, devices=None,
     layers are gathered to the first device, where bloom, the clamp and
     the flare run over the whole frame (``pipeline.post_process``).
     ``on_stage``, if given, is called with each stage's name as it is
-    enqueued: "setup" (scene assets and renderer made), "disk_texture",
-    the renderer's "replicas", "trace", "shade" and "gather", then "post".
+    enqueued: "setup" (scene assets and renderer made), "disk_texture"
+    (not for a V2 scene, which has none), the renderer's "replicas",
+    "trace", "shade" and "gather", then "post".
 
     A band whose largest hit count is below the whole frame's skips the
     slots it does not need, where the whole frame runs them with alpha
@@ -209,11 +226,14 @@ def render_image_tiled(config: SceneConfig, devices=None,
         use_diff=config.use_ray_differentials, return_layers=True)
     cam_pack = pack_cameras([build_camera(config.pov, config.fov, width, height)])
     mark("setup")
-    if dynamic is not None:
-        disk_tex = dynamic.advance(t=0.0, dt=0.0, recompute_stats=True)
-    mips = build_mipmaps(torch.as_tensor(disk_tex, dtype=torch.float32,
-                                         device=devices[0]), levels=MIP_LEVELS)
-    mark("disk_texture")
+    mips = None
+    if config.disk_model != "v2":
+        if dynamic is not None:
+            disk_tex = dynamic.advance(t=0.0, dt=0.0, recompute_stats=True)
+        mips = build_mipmaps(
+            torch.as_tensor(disk_tex, dtype=torch.float32, device=devices[0]),
+            levels=MIP_LEVELS)
+        mark("disk_texture")
     layers = render(skybox, mips, cam_pack, np.zeros(1, np.float32), on_stage)
     final = post_process(layers[0, 0], layers[0, 1], True, config.lens_flare)
     mark("post")

@@ -14,6 +14,11 @@ share of each batch with no traffic between devices:
           -> ray-march kernel -> deferred shade -> bloom, clamp, flare
           -> uint8 frame
 
+A ``disk_model="v2"`` scene has no lifecycle and no texture: its frame
+is trace -> ``shade_frame_v2`` -> post, a function of the camera and the
+frame's time alone, so nothing is replayed or packed for it and no
+background pass runs.
+
 The background noise is ~10 k small element-wise device operations a
 frame, bound by their launches and not by their sizes, so a device makes
 the noise of all its frames of a batch in one pass over a leading frame
@@ -40,8 +45,8 @@ Not ported, because it is XLA and TPU layout machinery: the
 ``tex_dtype`` / quad-pack / mip-atlas texture storage (the port's
 samplers read plain float32 textures) and the ``_RENDERER_MEMO`` /
 ``_SKYBOX_Q_MEMO`` tables (nothing is traced or compiled per renderer
-here). Not ported yet: the V2 disk's frame program and the multi-host
-fleet (ROADMAP.md Queue 1 items 12 and 17).
+here). Not ported yet: the multi-host fleet (ROADMAP.md Queue 1 item
+17).
 """
 
 from __future__ import annotations
@@ -78,7 +83,13 @@ from ..models.skybox import load_or_generate_skybox
 from ..ops.background import generate_background_components
 from ..ops.geodesic_cuda import trace_geodesics_cuda
 from ..ops.sampling import build_mipmaps
-from ..pipeline import MIP_LEVELS, post_process, shade_frame
+from ..pipeline import (
+    MIP_LEVELS,
+    post_process,
+    shade_frame,
+    shade_frame_v2,
+    v2_shade_args,
+)
 from ..utils.io import (
     AsyncPNGWriter,
     IncrementalH264Assembler,
@@ -90,7 +101,13 @@ from .mesh import FrameMesh, cuda_devices, make_frame_mesh
 
 # The stages of one frame, in the order ``on_stage`` reports them;
 # "background" is reported once per device and batch, before its frames.
+# A V2 frame has no background and no texture stage.
 STAGES = ("texture", "trace", "shade", "post")
+
+
+def frame_stages(config: SceneConfig) -> tuple:
+    """The stages ``on_stage`` reports for each frame of ``config``."""
+    return STAGES[1:] if config.disk_model == "v2" else STAGES
 
 
 def pack_frame_params(
@@ -148,14 +165,17 @@ def build_sharded_video_renderer(
     ``skybox`` is an (Hs, Ws, 3) array or the dict ``replicate(mesh,
     skybox)``, so that a caller with many batches uploads it once.
     ``fil``, ``hs``, ``rt`` are ``pack_frame_params``' rows for these F
-    frames. Each frame's texture is normalized with stats recomputed for
+    frames. For a ``disk_model="v2"`` config they are None, ``n_r``,
+    ``n_phi``, ``az_freq`` and ``az_shear`` are unused (pass 0), and a
+    frame is its trace shaded by ``shade_frame_v2`` at advection time
+    ``t_arr[i]``, with no background pass. Each frame's texture is normalized with stats recomputed for
     that frame (``models.dynamic_disk.frame_texture``); with AA the mip
     pyramid is built, else only level 0 is ever sampled. The trace goes
     through ``trace_geodesics_cuda``: the ray-march kernel on a CUDA
     device. ``on_frame(pos, frame)`` is called with each frame's uint8
     tensor, on its device, as soon as it is enqueued;
     ``on_stage(stage, pos, device)`` at the start of each frame
-    ("start") and after each of ``STAGES`` is enqueued, and with
+    ("start") and after each of ``frame_stages(config)`` is enqueued, and with
     ``pos=None`` before ("start") and after ("background") each device's
     background pass. ``use_bloom`` is for the interactive mode's
     toggle; a video always blooms.
@@ -166,33 +186,42 @@ def build_sharded_video_renderer(
             f"got {mesh.shape['tile']}")
     cfg = config
     width, height = cfg.image_size
-    if generation_scale is None:
+    is_v2 = cfg.disk_model == "v2"
+    if is_v2:
+        generation_scale = 1  # no texture pipeline, nothing to scale
+    elif generation_scale is None:
         generation_scale = adaptive_generation_scale(n_r, n_phi)
     elif n_r % generation_scale or n_phi % generation_scale:
         generation_scale = 1
     use_diff = cfg.use_ray_differentials
     devices = [row[0] for row in mesh.devices]
     r_inner, r_outer = float(cfg.disk_inner_radius), float(cfg.disk_outer_radius)
-    # The lifecycle's own radial helper, so that entity phases are the
-    # same in the sequential and the batched engine.
-    _, omega_np = radial_omega_rows(n_r, r_inner, r_outer)
-    omega_rows = replicate(mesh, omega_np)
-    edge = replicate(mesh, compute_edge_alpha(n_r))
+    if is_v2:
+        v2_args = v2_shade_args(cfg)
+    else:
+        # The lifecycle's own radial helper, so that entity phases are
+        # the same in the sequential and the batched engine.
+        _, omega_np = radial_omega_rows(n_r, r_inner, r_outer)
+        omega_rows = replicate(mesh, omega_np)
+        edge = replicate(mesh, compute_edge_alpha(n_r))
     shape = (height, width, 3)
 
-    def start_frame(dev, cam, t, fil, hs, rt, background, mark):
-        """Texture, mips and trace of one frame: nothing here waits for
-        the device."""
+    def start_frame(dev, cam, t, entities, background, mark):
+        """Texture, mips and trace of one frame (a V2 frame: the trace
+        alone): nothing here waits for the device."""
         mark("start")
-        tex, _, _ = frame_texture(
-            fil, hs, rt, omega_rows[dev], edge[dev], t,
-            n_r=n_r, n_phi=n_phi, az_freq=az_freq, az_shear=az_shear,
-            r_inner=r_inner, r_outer=r_outer,
-            generation_scale=generation_scale,
-            color_temp=DISK_COLOR_TEMPERATURE, background=background,
-        )
-        mips = build_mipmaps(tex, levels=MIP_LEVELS) if use_diff else tex[None]
-        mark("texture")
+        mips = None
+        if not is_v2:
+            tex, _, _ = frame_texture(
+                *entities, omega_rows[dev], edge[dev], t,
+                n_r=n_r, n_phi=n_phi, az_freq=az_freq, az_shear=az_shear,
+                r_inner=r_inner, r_outer=r_outer,
+                generation_scale=generation_scale,
+                color_temp=DISK_COLOR_TEMPERATURE, background=background,
+            )
+            mips = (build_mipmaps(tex, levels=MIP_LEVELS) if use_diff
+                    else tex[None])
+            mark("texture")
         trace = trace_geodesics_cuda(
             cam, width=width, height=height,
             h_base=float(cfg.step_size), r_escape=float(r_escape),
@@ -203,14 +232,20 @@ def build_sharded_video_renderer(
         mark("trace")
         return mips, trace
 
-    def finish_frame(skybox, cam, mips, trace, mark) -> torch.Tensor:
+    def finish_frame(skybox, cam, t, mips, trace, mark) -> torch.Tensor:
         """Shade, post and quantize one frame -> (H, W, 3) uint8."""
-        # The lifecycle texture carries its own rotation: t_offset 0.
-        bg, disk, _ = shade_frame(
-            trace, skybox, mips, cam[0:3],
-            r_inner=r_inner, r_outer=r_outer, tilt_deg=float(cfg.disk_tilt),
-            t_offset=0.0, use_lod=use_diff, aa_strength=float(cfg.aa_strength),
-        )
+        if is_v2:
+            # The structure pattern advects with the frame's time.
+            bg, disk, _ = shade_frame_v2(
+                trace, skybox, cam[0:3], t_offset=t, **v2_args)
+        else:
+            # The lifecycle texture carries its own rotation: t_offset 0.
+            bg, disk, _ = shade_frame(
+                trace, skybox, mips, cam[0:3],
+                r_inner=r_inner, r_outer=r_outer,
+                tilt_deg=float(cfg.disk_tilt), t_offset=0.0,
+                use_lod=use_diff, aa_strength=float(cfg.aa_strength),
+            )
         mark("shade")
         final = post_process(bg.reshape(shape), disk.reshape(shape),
                              use_bloom, cfg.lens_flare)
@@ -230,19 +265,20 @@ def build_sharded_video_renderer(
             raise ValueError(
                 f"{n_frames} frames do not divide over the mesh's frames "
                 f"axis {n}")
-        for name, a in (("t_arr", t_np), ("fil", fil), ("hs", hs), ("rt", rt)):
+        packs = () if is_v2 else (("fil", fil), ("hs", hs), ("rt", rt))
+        for name, a in (("t_arr", t_np), *packs):
             if len(a) != n_frames:
                 raise ValueError(
                     f"{name} holds {len(a)} frames, cam_pack {n_frames}")
         # Every host-to-device copy before the first launch: a blocking
         # copy between two launches would wait for the first.
         skyboxes = skybox if isinstance(skybox, dict) else replicate(mesh, skybox)
-        cams, fils, hss, rts = (replicate(mesh, a)
-                                for a in (cam_np, fil, hs, rt))
+        cams = replicate(mesh, cam_np)
+        entities = [replicate(mesh, a) for _, a in packs]
         # The background noise of each device's frames (i, i + n, ...) in
         # one pass: backgrounds[i][k] is frame i + k * n's.
         backgrounds = []
-        for i, dev in enumerate(devices):
+        for i, dev in enumerate(() if is_v2 else devices):
             if on_stage:
                 on_stage("start", None, dev)
             backgrounds.append(generate_background_components(
@@ -258,13 +294,14 @@ def build_sharded_video_renderer(
                            on_stage and on_stage(stage, pos, dev))
                      for pos, dev in shards}
             started = [start_frame(dev, cams[dev][pos], float(t_np[pos]),
-                                   fils[dev][pos], hss[dev][pos],
-                                   rts[dev][pos], backgrounds[i][first // n],
+                                   [e[dev][pos] for e in entities],
+                                   None if is_v2 else backgrounds[i][first // n],
                                    marks[pos])
                        for i, (pos, dev) in enumerate(shards)]
             for (pos, dev), (mips, trace) in zip(shards, started):
                 frames[pos] = finish_frame(skyboxes[dev], cams[dev][pos],
-                                           mips, trace, marks[pos])
+                                           float(t_np[pos]), mips, trace,
+                                           marks[pos])
                 if on_frame is not None:
                     on_frame(pos, frames[pos])
             # Each frame's float layers are freed before the next round.
@@ -279,10 +316,10 @@ def render_video_frames_sharded(
     mesh: FrameMesh,
     frame_indices,
     skybox,
-    dynamic: DynamicDiskSystem,
-    all_fil: np.ndarray,
-    all_hs: np.ndarray,
-    all_rt: np.ndarray,
+    dynamic: Optional[DynamicDiskSystem],
+    all_fil: Optional[np.ndarray],
+    all_hs: Optional[np.ndarray],
+    all_rt: Optional[np.ndarray],
     renderer_fn=None,
     defer_fetch: bool = False,
     on_frame=None,
@@ -295,7 +332,8 @@ def render_video_frames_sharded(
     renderer for reuse). With ``defer_fetch=True`` the first element is
     the (F, H, W, 3) uint8 tensor still on the device: the caller fetches
     when it needs the pixels. ``skybox``, ``on_frame`` and ``on_stage``
-    are the renderer's (``build_sharded_video_renderer``).
+    are the renderer's (``build_sharded_video_renderer``). A V2 scene
+    has no lifecycle: ``dynamic`` and the three packs are None.
     """
     width, height = config.image_size
     # One camera placement for every engine: a drift between this and the
@@ -306,17 +344,27 @@ def render_video_frames_sharded(
     )
     idx = np.asarray(frame_indices)
     if renderer_fn is None:
-        renderer_fn = build_sharded_video_renderer(
-            mesh, config, dynamic.n_r, dynamic.n_phi,
-            r_escape=scene_escape_radius(config), az_freq=dynamic.az_freq,
-            az_shear=dynamic.az_shear,
-        )
-    out = renderer_fn(skybox, pack_cameras(cams), t_np, all_fil[idx],
-                      all_hs[idx], all_rt[idx], on_frame=on_frame,
-                      on_stage=on_stage)
+        renderer_fn = _video_renderer(mesh, config, dynamic)
+    fil, hs, rt = (None if a is None else a[idx]
+                   for a in (all_fil, all_hs, all_rt))
+    out = renderer_fn(skybox, pack_cameras(cams), t_np, fil, hs, rt,
+                      on_frame=on_frame, on_stage=on_stage)
     if defer_fetch:
         return out, renderer_fn
     return list(enumerate(out.cpu().numpy())), renderer_fn
+
+
+def _video_renderer(mesh: FrameMesh, config: SceneConfig,
+                    dynamic: Optional[DynamicDiskSystem]):
+    """The video renderer of a scene: sized by its lifecycle system, or
+    (``dynamic`` None) the V2 frame program, which has no texture."""
+    r_escape = scene_escape_radius(config)
+    if dynamic is None:
+        return build_sharded_video_renderer(
+            mesh, config, 0, 0, r_escape=r_escape, az_freq=0.0, az_shear=0.0)
+    return build_sharded_video_renderer(
+        mesh, config, dynamic.n_r, dynamic.n_phi, r_escape=r_escape,
+        az_freq=dynamic.az_freq, az_shear=dynamic.az_shear)
 
 
 class _FrameFetcher:
@@ -395,7 +443,8 @@ def render_video_sharded(config: SceneConfig, devices=None) -> dict:
     ``assembler`` ("native", "ffmpeg", "mjpeg" or "none"), ``stage_ms``
     (per-frame medians: background (a batch's pass over its frames),
     texture, trace, shade, post on the device's clock, fetch on the copy
-    stream's, png and h264 on the host's) and
+    stream's, png and h264 on the host's; a V2 video has no background
+    and no texture entry) and
     ``writer_wait_s`` (how long the main thread waited on the writers).
     """
     from ..modes import (
@@ -406,9 +455,11 @@ def render_video_sharded(config: SceneConfig, devices=None) -> dict:
     )
 
     config = config.validated()
-    if config.disk_model != "texture" or config.disk_texture is not None:
+    if config.disk_texture is not None:
         raise ValueError(
-            "the batched video engine renders the lifecycle texture disk")
+            "the batched video engine renders the lifecycle texture disk "
+            "or the V2 volume disk, not an external disk texture")
+    is_v2 = config.disk_model == "v2"
     width, height = config.image_size
     if devices is not None:
         devices = [torch.device(d) for d in devices]
@@ -448,24 +499,26 @@ def render_video_sharded(config: SceneConfig, devices=None) -> dict:
         config.texture, 2048, 1024, config.n_stars, seed=config.skybox_seed)
     skybox = replicate(mesh, skybox_np)  # once per call, not per batch
 
-    n_phi, n_r = compute_disk_texture_resolution(
-        width, height, config.pov, config.fov,
-        config.disk_inner_radius, config.disk_outer_radius,
-    )
-    dynamic = DynamicDiskSystem(
-        n_r, n_phi, config.disk_inner_radius, config.disk_outer_radius,
-        seed=config.seed, device=mesh.devices[0][0],
-    )
-    print(f"Packing lifecycle params for {config.n_frames} frames...")
-    t0 = time.time()
-    all_fil, all_hs, all_rt = pack_frame_params(
-        dynamic, config.n_frames, config.disk_rotation_speed
-    )
-    print(f"  packed in {time.time() - t0:.1f}s")
-    renderer_fn = build_sharded_video_renderer(
-        mesh, config, n_r, n_phi, r_escape=scene_escape_radius(config),
-        az_freq=dynamic.az_freq, az_shear=dynamic.az_shear,
-    )
+    # V2 renders by volume integration: no lifecycle system to replay,
+    # every frame is a function of (camera, t).
+    dynamic, all_fil, all_hs, all_rt = None, None, None, None
+    if not is_v2:
+        n_phi, n_r = compute_disk_texture_resolution(
+            width, height, config.pov, config.fov,
+            config.disk_inner_radius, config.disk_outer_radius,
+        )
+        dynamic = DynamicDiskSystem(
+            n_r, n_phi, config.disk_inner_radius, config.disk_outer_radius,
+            seed=config.seed, device=mesh.devices[0][0],
+        )
+        print(f"Packing lifecycle params for {config.n_frames} frames...")
+        t0 = time.time()
+        all_fil, all_hs, all_rt = pack_frame_params(
+            dynamic, config.n_frames, config.disk_rotation_speed
+        )
+        print(f"  packed in {time.time() - t0:.1f}s")
+    renderer_fn = _video_renderer(mesh, config, dynamic)
+    stages = frame_stages(config)
 
     writer = AsyncPNGWriter(max_workers=4, max_pending=8)
     # One thread feeds the H.264 assembler, so frames reach it in the
@@ -480,7 +533,8 @@ def render_video_sharded(config: SceneConfig, devices=None) -> dict:
     pending = [f for f in range(config.n_frames) if f not in completed]
     n_batches = (len(pending) + batch - 1) // batch
     waited = [0.0]  # seconds the main thread was blocked on the writers
-    stage_ms = {name: [] for name in ("background", *STAGES, "fetch")}
+    stage_ms = {name: [] for name in
+                (*(() if is_v2 else ("background",)), *stages, "fetch")}
 
     def encode_h264(f, frame, copied) -> None:
         if copied is not None:
@@ -537,7 +591,7 @@ def render_video_sharded(config: SceneConfig, devices=None) -> dict:
                     for a, b in zip(stamps[::2], stamps[1::2])]
             elif pos < len(done.chunk):
                 # (Nothing waited for a padding frame's events.)
-                for name, a, b in zip(STAGES, stamps, stamps[1:]):
+                for name, a, b in zip(stages, stamps, stamps[1:]):
                     stage_ms[name].append(_elapsed_ms(a, b))
         stage_ms["fetch"] += [a.elapsed_time(b) for a, b in done.copies]
         if (done.b + 1) % 10 == 0 or done.b == n_batches - 1:

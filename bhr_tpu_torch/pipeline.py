@@ -1,21 +1,25 @@
 """Per-frame render pipeline: trace -> deferred shade -> bloom, clamp, flare.
 
-The port of ``bhr_tpu/pipeline.py`` for the still frame of a texture
-disk. The trace records up to K disk crossings per ray (on a CUDA device
+The port of ``bhr_tpu/pipeline.py``. The trace records up to K disk crossings per ray (on a CUDA device
 through the hand-written ray-march kernel, on the CPU through its plain
 version), with two transported ray differentials per crossing when
 anti-aliasing is on; shading then samples the disk texture at every
 recorded hit (with AA, at the mip level the differentials' texture-space
 footprint selects), applies the relativistic g-factor, composites the K
 slots front to back, and samples the skybox for escaped rays; bloom, a
-clamp and the optional lens flare finish the frame. PyTorch runs
-eagerly, so the ``Renderer`` holds the device assets (skybox, disk mip
-pyramid) and calls each stage in turn.
+clamp and the optional lens flare finish the frame. With
+``disk_model="v2"`` there is no texture: ``shade_frame_v2`` integrates
+emission and absorption through a finite-thickness slab at every
+recorded hit (``models/disk_v2``). PyTorch runs eagerly, so the
+``Renderer`` holds the device assets (skybox, disk mip pyramid) and
+calls each stage in turn.
 
-Not ported yet (raises, see ROADMAP.md): the V2 volume disk. The TPU's
-ghost-slot crop window is left out on purpose: it only cut TPU gather
-counts and is exact by construction, so the masked pass over all slots
-gives the same image.
+``bhr_tpu``'s ghost-slot crop window is left out of the texture path on
+purpose: it only cuts gather counts and is exact by construction, so the
+masked pass over all slots gives the same image. The V2 path has the
+eager counterpart of it: shapes are free to change from call to call, so
+only the rays that recorded a hit in a slot are integrated, all slots'
+in one pass.
 """
 
 from __future__ import annotations
@@ -143,6 +147,158 @@ def shade_frame(
     return bg, disk_rgb, alpha_total
 
 
+def v2_shade_args(config: SceneConfig) -> dict:
+    """The scene arguments of :func:`shade_frame_v2` for a V2 config: the
+    whole V2 surface (body params, structure layer, palette, quadrature
+    samples), the tilt and the seed."""
+    return dict(
+        v2_params=config.v2_params(),
+        v2_structure=config.v2_structure_params(),
+        tilt_deg=float(config.disk_tilt),
+        palette=config.v2_palette,
+        n_samples=int(config.v2_samples),
+        seed=int(config.seed),
+    )
+
+
+def _v2_slot_shader(cam_pos, *, v2_params, v2_structure, tilt_deg, t_offset,
+                    palette, n_samples, seed, color_temp):
+    """The V2 shade of a batch of hits: a function from ``feat`` (5+, M)
+    (x, y, direction of M recorded crossings) to (shaded colour (M, 3),
+    alpha (M,)). Element-wise per hit."""
+    from .models.disk_v2.integrator import integrate_emission
+    from .models.disk_v2.palette import apply_palette
+
+    tilt_rad = float(np.deg2rad(tilt_deg))
+    tan_t = float(np.tan(tilt_rad))
+    cos_t, sin_t = float(np.cos(tilt_rad)), float(np.sin(tilt_rad))
+    t_peak = float(v2_params.temp_scale)
+
+    def to_disk_frame(v):
+        """Rotate world -> disk frame (tilt about x-axis undone)."""
+        x, y, z = v[:, 0], v[:, 1], v[:, 2]
+        return torch.stack(
+            [x, y * cos_t + z * sin_t, -y * sin_t + z * cos_t], dim=-1)
+
+    def shade_slot(feat):
+        hit_x, hit_y = feat[0], feat[1]
+        hit_pos_w = torch.stack([hit_x, hit_y, hit_y * tan_t], dim=-1)
+        ray_dir_w = feat[2:5].T
+        intensity, temp_mean, alpha = integrate_emission(
+            to_disk_frame(hit_pos_w), to_disk_frame(ray_dir_w),
+            v2_params, v2_structure,
+            n_samples=n_samples, seed=seed, t=t_offset,
+        )
+        color = apply_palette(
+            intensity * 4.0, temp_mean / max(t_peak * 0.45, 1e-6), palette)
+        hit_r = torch.sqrt(hit_x ** 2 + hit_y ** 2)
+        shaded = apply_g_factor(
+            color, hit_pos_w, hit_r, -ray_dir_w, cam_pos,
+            float(v2_params.r_in), float(v2_params.r_out), tilt_rad,
+            color_temp,
+        )
+        return shaded, torch.clamp(alpha, 0.0, 0.999)
+
+    return shade_slot
+
+
+def _v2_layers(trace, skybox, accum, alpha_total):
+    """(bg_rgb, disk_rgb, alpha_total) from the composited disk layer."""
+    bg = torch.where(trace.escaped[:, None],
+                     sample_skybox(skybox, trace.escape_dir), 0.0)
+    bg = bg * (1.0 - alpha_total)[:, None]
+    return bg, torch.clamp(accum, 0.0, 1.0), alpha_total
+
+
+def shade_frame_v2(
+    trace: geodesic.TraceResult,
+    skybox: torch.Tensor,
+    cam_pos: torch.Tensor,
+    *,
+    v2_params,
+    v2_structure,
+    tilt_deg: float,
+    t_offset: float,
+    palette: str = "cinematic",
+    n_samples: int = 8,
+    seed: int = 42,
+    color_temp: float = DISK_COLOR_TEMPERATURE,
+    on_slot=None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Disk V2 deferred shading: emission-absorption slab integration.
+
+    Replaces the texture lookup of :func:`shade_frame` with the disk_v2
+    volume model (``models/disk_v2/integrator.py``): at each recorded
+    midplane crossing, integrate j * exp(-tau) through the
+    finite-thickness slab along the ray, map (intensity, temperature)
+    through the palette, and apply the same relativistic g-factor
+    shading and front-to-back compositing as the texture path.
+    ``t_offset`` is the advection time of the structure pattern
+    (phi - Omega(r) t).
+
+    A slot k counts only when some ray recorded k + 1 hits. The rays
+    with ``k < hit_count`` of every such slot are gathered into one
+    batch, integrated in one pass (a ghost slot holds a few percent of
+    the frame's hits, too few to pay for its own ~600 launches) and
+    composited slot by slot, front to back; rays without a hit in a slot
+    are left untouched. The integrator is element-wise per ray, so a
+    ray's value does not depend on the selection.
+    ``on_slot(k, n_rays)``, if given, is called after slot k is
+    composited with the number of rays integrated for it.
+
+    Returns (bg_rgb, disk_rgb, alpha_total), each flattened over the N
+    pixels.
+    """
+    shade_slot = _v2_slot_shader(
+        cam_pos, v2_params=v2_params, v2_structure=v2_structure,
+        tilt_deg=tilt_deg, t_offset=t_offset, palette=palette,
+        n_samples=n_samples, seed=seed, color_temp=color_temp)
+    n = trace.hits.shape[2]
+    dev = trace.hits.device
+    accum = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    alpha_total = torch.zeros((n,), dtype=torch.float32, device=dev)
+    max_hits = int(trace.hit_count.max()) if n else 0
+
+    slots = range(min(trace.hits.shape[0], max_hits))
+    if slots:  # (no slot: nothing to gather)
+        rays = [torch.nonzero(k < trace.hit_count).squeeze(1) for k in slots]
+        sizes = [idx.numel() for idx in rays]
+        shaded, alpha = shade_slot(torch.cat(
+            [trace.hits[k][:5, idx] for k, idx in zip(slots, rays)], dim=1))
+        for k, idx, col, a in zip(slots, rays, shaded.split(sizes),
+                                  alpha.split(sizes)):
+            front = 1.0 - alpha_total[idx]
+            accum[idx] += col * (a * front)[:, None]
+            alpha_total[idx] = 1.0 - front * (1.0 - a)
+            if on_slot is not None:
+                on_slot(k, idx.numel())
+    return _v2_layers(trace, skybox, accum, alpha_total)
+
+
+def _shade_frame_v2_masked(trace, skybox, cam_pos, *, on_slot=None,
+                           color_temp: float = DISK_COLOR_TEMPERATURE,
+                           **scene):
+    """:func:`shade_frame_v2`'s reference: every populated slot runs over
+    all N rays with alpha masked to 0 where there is no hit, as
+    ``bhr_tpu``'s full-frame pass does. Used by the tests and by
+    ``chip_smoke.py`` to hold the gathered pass; no entry point runs it."""
+    shade_slot = _v2_slot_shader(cam_pos, color_temp=color_temp, **scene)
+    n = trace.hits.shape[2]
+    dev = trace.hits.device
+    accum = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    alpha_total = torch.zeros((n,), dtype=torch.float32, device=dev)
+    max_hits = int(trace.hit_count.max()) if n else 0
+    for k in range(min(trace.hits.shape[0], max_hits)):
+        shaded, alpha = shade_slot(trace.hits[k])
+        alpha = torch.where(k < trace.hit_count, alpha, 0.0)
+        front = 1.0 - alpha_total
+        accum = accum + shaded * (alpha * front)[:, None]
+        alpha_total = 1.0 - front * (1.0 - alpha)
+        if on_slot is not None:
+            on_slot(k, n)
+    return _v2_layers(trace, skybox, accum, alpha_total)
+
+
 def post_process(bg_img: torch.Tensor, disk_img: torch.Tensor,
                  use_bloom: bool, use_flare: bool) -> torch.Tensor:
     """The frame-global post of (H, W, 3) layers: bloom of the disk layer
@@ -163,7 +319,7 @@ class Renderer:
     """Holds the device assets and config; renders frames stage by stage.
 
     Usage:
-        renderer = Renderer(config, skybox, disk_tex)
+        renderer = Renderer(config, skybox, disk_tex)  # None for V2
         img = renderer.render(cam_pos, fov)          # (H, W, 3) numpy
         renderer.update_disk_texture(new_tex)        # dynamic textures
 
@@ -217,8 +373,8 @@ class Renderer:
         ``r_escape`` is a runtime argument of the kernel, so no value of
         it costs a rebuild (``escape_radius(r_max, cam_pos)`` per frame).
         ``use_diff`` transports ray differentials (the AA trace);
-        crossings are recorded only when there is a disk texture to shade
-        them with.
+        crossings are recorded only when there is something to shade
+        them with: a disk texture, or the V2 volume model.
         """
         cfg = self.config
         cam = torch.as_tensor(camera_params(camera), device=self.device)
@@ -231,21 +387,29 @@ class Renderer:
             r_outer=float(cfg.disk_outer_radius),
             with_differentials=use_diff,
             max_crossings=MAX_DISK_CROSSINGS,
-            record_hits=self.disk_mips is not None,
+            record_hits=(self.disk_mips is not None
+                         or cfg.disk_model == "v2"),
         )
 
     def shade(self, trace: geodesic.TraceResult, camera: Camera, frame: int,
               use_diff: bool) -> Tuple[torch.Tensor, torch.Tensor]:
         """Deferred shade -> (bg, disk) layers, each (N, 3); ``use_diff``
-        selects the mip LOD from the trace's differentials."""
+        selects the mip LOD from the trace's differentials. A V2 scene
+        integrates the volume model at advection time ``t_offset``."""
         cfg = self.config
+        cam_pos = torch.as_tensor(camera.pos, device=self.device)
+        t_offset = float(np.float32(frame * cfg.disk_rotation_speed))
+        if cfg.disk_model == "v2":
+            bg, disk_rgb, _ = shade_frame_v2(
+                trace, self.skybox, cam_pos, t_offset=t_offset,
+                **v2_shade_args(cfg))
+            return bg, disk_rgb
         bg, disk_rgb, _ = shade_frame(
-            trace, self.skybox, self.disk_mips,
-            torch.as_tensor(camera.pos, device=self.device),
+            trace, self.skybox, self.disk_mips, cam_pos,
             r_inner=float(cfg.disk_inner_radius),
             r_outer=float(cfg.disk_outer_radius),
             tilt_deg=float(cfg.disk_tilt),
-            t_offset=float(np.float32(frame * cfg.disk_rotation_speed)),
+            t_offset=t_offset,
             use_lod=use_diff,
             aa_strength=float(cfg.aa_strength),
         )

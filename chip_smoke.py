@@ -33,11 +33,24 @@ exits non-zero without printing a result:
 4. the ``default``, ``aa`` and ``flare`` golden scenes through
    ``bhr_tpu_torch.modes.render_image`` on CUDA, each within max 5e-2 /
    mean 5e-4 of ``tests/goldens/e2e_cpu{,_aa,_flare}.npz``, with exactly
-   one launch of the expected kernel and the scene's sanity checks;
+   one launch of the expected kernel and the scene's sanity checks; the
+   V2 volume disk's ``v2`` and ``v2sci`` goldens the same way
+   (``e2e_cpu_v2.npz``, ``e2e_cpu_v2sci.npz``): one ``ray_march_slim``
+   launch each, no ``ray_march_nodisk`` launch and no plain trace call,
+   and ``v2`` with ``anti_alias="lod_radius"`` launches ``ray_march_slim``
+   too and is bit-equal to ``v2``;
 5. the main paths at full width (1920x1080), each with the launch
    counts set to 0 just before it and read just after: the default frame
    and the ``--anti_alias lod_radius --lens_flare`` frame through
-   ``bhr_tpu_torch.cli.main``, and a Renderer without a disk texture;
+   ``bhr_tpu_torch.cli.main``, a Renderer without a disk texture, and the
+   V2 stills ``--disk_model v2`` and ``--disk_model v2 --v2_structure
+   --v2_palette scientific`` through ``cli.main`` (one ``ray_march_slim``
+   launch each); the V2 frames' per-stage medians (trace, shade, post: a
+   V2 frame has no texture stage), the device's busy share of a frame
+   (torch.profiler, where it reports device time), the shade split per
+   hit slot (the masked full-frame pass slot by slot, each slot's own
+   hits alone, and all hits in one pass) with the rays per slot, and the
+   peak memory of the masked and the one-pass shade;
    per-stage medians (CUDA events) of the default and the AA+flare
    frames; every instantiation vs its plain version at FHD (as phase 3,
    but the agreeing rays over a float tolerance count with the flips
@@ -65,7 +78,10 @@ exits non-zero without printing a result:
    ``ray_march_aa`` launches), within 2e-5 of the same frame rendered
    whole on cuda:0, with stage medians (CUDA events; the tiled stages
    as ``render_image_tiled``'s ``on_stage`` callback marks them) and peak
-   memory of both. The bands of (b) and (c) run on cuda:0..3 where four
+   memory of both; (d) the V2 disk in 4 bands: the ``v2`` golden (4
+   ``ray_march_slim`` launches, the goldens' bounds) and the FHD and 4K
+   V2 stills tiled against whole within 2e-5, with the whole frames' peak
+   memory. The bands of (b), (c) and (d) run on cuda:0..3 where four
    cards are visible, else all on cuda:0;
 7. the orbit video (``parallel/video.py``, ``modes.render_video``), with
    the plain trace's calls counted beside the kernels' launches (none is
@@ -83,17 +99,22 @@ exits non-zero without printing a result:
    of the batched engine's; (d) at full width through
    ``bhr_tpu_torch.cli.main``, each with the counts set to 0 just before
    and read just after: ``--video --orbit -r fhd --n_frames 24 --fps 24``
-   (24 ``ray_march_slim`` launches) and the same with 8 frames and
+   (24 ``ray_march_slim`` launches), the same with 8 frames and
    ``--anti_alias lod_radius --aa_strength 1.0 --lens_flare`` (8
-   ``ray_march_aa``): wall seconds, frames/s end to end and steady, the
+   ``ray_march_aa``), and the 24 frames with ``--disk_model v2`` (24
+   ``ray_march_slim``; no texture stage): wall seconds, frames/s end to end and steady, the
    per-frame stage medians, the main thread's wait on the writers, which
    assembler finished the file (with the native one, ``probe_video`` must
    give the frame count and size), the zlib levels' time and size on one
    FHD frame, the default video through the sequential engine and,
    where several cards are visible, on one card beside all of them;
+   (e) the golden orbit with ``disk_model="v2"``, structure on: batched
+   against sequential within one uint8 step in every frame, a resume after frames 4-7 are removed (4
+   launches, 8 of 8 PNGs byte-equal), a changed ``v2_samples`` with
+   ``resume`` wipes and renders 8;
 8. a JSON line describing every instantiation at FHD (kernel, plain
    version, FP32-operation bound and issue bound times; ``launches`` sums
-   the paths of phases 5, 6 and 7d), then the result line ``{"ok": true,
+   the paths of phases 5, 6c, 6d and 7d), then the result line ``{"ok": true,
    "device": {...}}`` as the last line.
 
 Imports torch, numpy and bhr_tpu_torch only.
@@ -127,6 +148,14 @@ GOLDEN = dict(width=320, height=180, pov=POV, fov=60.0, step_size=0.1,
 SCENES = {"default": ({}, "ray_march_slim"),
           "aa": ({"anti_alias": "lod_radius"}, "ray_march_aa"),
           "flare": ({"lens_flare": True}, "ray_march_slim")}
+# The V2 volume disk's golden families: every V2 frame launches the slim
+# kernel (hits recorded, no differentials).
+V2_SCENES = {"v2": {"disk_model": "v2"},
+             "v2sci": {"disk_model": "v2", "v2_palette": "scientific",
+                       "v2_structure": True}}
+V2_FLAGS = {"v2": ["--disk_model", "v2"],
+            "v2sci": ["--disk_model", "v2", "--v2_structure", "--v2_palette",
+                      "scientific"]}
 # Trace variants by their kernel's instantiation name.
 VARIANTS = {
     "ray_march_slim": {},
@@ -147,7 +176,8 @@ TOL_TILED = 2e-5  # tiled vs whole frame (test_sharded_frames.py's bound)
 GOLDEN_VIDEO = dict(GOLDEN, video=True, orbit=True, orbit_degrees=45.0,
                     n_frames=8, fps=24, frame_shards=1, frames_per_dispatch=8)
 FHD_VIDEOS = (("default", 24, [], "ray_march_slim"),
-              ("aa_flare", 8, AA_FLAGS, "ray_march_aa"))
+              ("aa_flare", 8, AA_FLAGS, "ray_march_aa"),
+              ("v2", 24, V2_FLAGS["v2"], "ray_march_slim"))
 
 # FP32 operations of csrc/ray_march.cu for the bound of each
 # instantiation: an add, multiply, sqrt, rsqrt or reciprocal counts one,
@@ -483,6 +513,163 @@ def expect_launches(counts: dict, name: str, what: str) -> None:
           f"{what} launched {counts}, expected {name} exactly once")
 
 
+@contextlib.contextmanager
+def counted_plain_traces():
+    """Counts the plain trace's calls made through the kernel's wrapper
+    while the block runs -> a one-element list holding the count."""
+    from bhr_tpu_torch.ops import geodesic_cuda
+
+    calls = [0]
+    real = geodesic_cuda.trace_geodesics
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return real(*args, **kwargs)
+
+    geodesic_cuda.trace_geodesics = counted
+    try:
+        yield calls
+    finally:
+        geodesic_cuda.trace_geodesics = real
+
+
+def golden_diff(img, name):
+    """(max, mean) |img - tests/goldens/<name>.npz| in float64."""
+    golden = np.load(os.path.join(ROOT, "tests", "goldens", f"{name}.npz"))["image"]
+    check(img.shape == golden.shape, f"{name}: shape {img.shape} vs {golden.shape}")
+    diff = np.abs(img.astype(np.float64) - golden.astype(np.float64))
+    return diff.max(), diff.mean()
+
+
+def device_busy_share(fn):
+    """(the share of ``fn``'s wall time in which the card ran a kernel or
+    a copy, how many kernels and copies it ran), from torch.profiler's
+    device times (their sum over the wall time: one stream, so they do
+    not overlap); (None, 0) where the profiler reports no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    # The kernels' and copies' own rows: an operator's row repeats the
+    # device time of the kernels it launched.
+    on_card = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(getattr(e, "self_device_time_total",
+                          getattr(e, "self_cuda_time_total", 0)) for e in on_card)
+    if busy_us <= 0:
+        return None, 0
+    return busy_us / wall_us, sum(e.count for e in on_card)
+
+
+def v2_stage_times(cfg, frames: int = 4):
+    """A V2 frame's stages (no texture stage): median ms over frames 1..
+    (frame 0 warms up) with CUDA events, the median host ms to enqueue a
+    frame, the device's busy share of one more frame and the kernels and
+    copies it ran (``device_busy_share``), and the last frame."""
+    from bhr_tpu_torch.config import escape_radius
+    from bhr_tpu_torch.modes import _make_renderer
+
+    renderer, dynamic = _make_renderer(cfg)
+    check(dynamic is None and renderer.disk_mips is None,
+          "a V2 scene made a lifecycle system or a disk texture")
+    r_escape = escape_radius(cfg.r_max, cfg.pov)
+    stages = {"trace": [], "shade": [], "post": []}
+    host, frame = [], None
+    for i in range(frames):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev[0].record()
+        camera = renderer.camera(cfg.pov, cfg.fov)
+        trace = renderer.trace(camera, r_escape, cfg.use_ray_differentials)
+        ev[1].record()
+        bg, disk = renderer.shade(trace, camera, 0, cfg.use_ray_differentials)
+        ev[2].record()
+        frame = renderer.post(bg, disk, True, cfg.lens_flare)[0]
+        ev[3].record()
+        enqueued = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        if i:
+            host.append(enqueued * 1e3)
+            for j, name in enumerate(stages):
+                stages[name].append(ev[j].elapsed_time(ev[j + 1]))
+    busy = device_busy_share(lambda: renderer.render_device(cfg.pov, cfg.fov))
+    return ({k: statistics.median(v) for k, v in stages.items()},
+            statistics.median(host), *busy, frame)
+
+
+def v2_shade_split(cfg, tag):
+    """The V2 shade of ``cfg``'s frame, split per hit slot, on one kernel
+    trace: the masked full-frame pass slot by slot (CUDA events at
+    ``on_slot``), each slot's own hits alone, all hits in one pass (what
+    the renderer runs), the rays per slot and the peak memory of the
+    masked and the one-pass shade; the two must agree."""
+    from bhr_tpu_torch.config import escape_radius
+    from bhr_tpu_torch.modes import _make_renderer
+    from bhr_tpu_torch.pipeline import (
+        _shade_frame_v2_masked, shade_frame_v2, v2_shade_args)
+
+    renderer, _ = _make_renderer(cfg)
+    camera = renderer.camera(cfg.pov, cfg.fov)
+    trace = renderer.trace(camera, escape_radius(cfg.r_max, cfg.pov), False)
+    cam_pos = torch.as_tensor(camera.pos, device="cuda")
+    args = dict(v2_shade_args(cfg), t_offset=0.0)
+    n = trace.hit_count.numel()
+
+    def shade(tr, masked=False, **kw):
+        fn = _shade_frame_v2_masked if masked else shade_frame_v2
+        return fn(tr, renderer.skybox, cam_pos, **args, **kw)
+
+    counts = []
+    shade(trace, on_slot=lambda k, m: counts.append(m))  # also warms up
+    shade(trace, masked=True)
+    marks = []
+
+    def mark(k, m):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append(ev)
+
+    peaks = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    start.record()
+    masked = shade(trace, masked=True, on_slot=mark)
+    end = torch.cuda.Event(enable_timing=True)
+    end.record()
+    torch.cuda.synchronize()
+    peaks["masked"] = torch.cuda.max_memory_allocated()
+    masked_ms = [a.elapsed_time(b) for a, b in zip([start, *marks], marks)]
+    sky_ms = marks[-1].elapsed_time(end)
+    masked_total = start.elapsed_time(end)
+    torch.cuda.reset_peak_memory_stats()
+    merged, merged_ms = cuda_ms(lambda: shade(trace), 3)
+    peaks["one pass"] = torch.cuda.max_memory_allocated()
+    alone_ms = []
+    for k in range(len(counts)):
+        only_k = trace._replace(hits=trace.hits[k:k + 1],
+                                hit_count=(trace.hit_count > k).to(torch.int32))
+        shade(only_k)
+        alone_ms.append(cuda_ms(lambda: shade(only_k), 3)[1] - sky_ms)
+    err = max(float((a - b).abs().max()) for a, b in zip(masked, merged))
+    say(f"[fhd-v2 shade {tag}] rays per slot {counts} of {n} "
+        f"({', '.join(f'{c / n:.2%}' for c in counts)}); masked full-frame pass "
+        f"per slot ms {', '.join(f'{t:.3f}' for t in masked_ms)} + sky "
+        f"{sky_ms:.3f} = {masked_total:.3f}; each slot's own hits alone ms "
+        f"{', '.join(f'{t:.3f}' for t in alone_ms)} (sky taken off); all hits in "
+        f"one pass, sky included: {merged_ms:.3f} ms; one pass vs masked max "
+        f"{err:.3e}; peak memory masked {peaks['masked'] / 2**30:.3f} GiB, one "
+        f"pass {peaks['one pass'] / 2**30:.3f} GiB")
+    check(len(counts) == len(masked_ms) and counts[0] > 0.05 * n,
+          f"V2 shade {tag}: slots {counts}")
+    check(err <= 1e-5, f"V2 shade {tag}: one pass vs masked {err}")
+
+
 def stage_times(cfg, frames: int = 4):
     """Median ms per stage over frames 1.. (frame 0 warms up) with CUDA
     events, and the last frame."""
@@ -629,10 +816,10 @@ def bound(name, steps, trace):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def tile_phase(launches, reset_counts) -> int:
+def tile_phase(launches, reset_counts) -> tuple:
     """Phases 6b and 6c on cuda:0..TILES-1 where that many cards are
-    visible, else on cuda:0 alone; -> the 4K path's ray_march_aa
-    launches."""
+    visible, else on cuda:0 alone, then phase 6d; -> (the 4K path's
+    ray_march_aa launches, the V2 stills' ray_march_slim band launches)."""
     import bhr_tpu_torch.cli as cli
     from bhr_tpu_torch.config import SceneConfig
     from bhr_tpu_torch.modes import render_image
@@ -713,7 +900,59 @@ def tile_phase(launches, reset_counts) -> int:
             f"{sum(med.values()):.3f}; peak memory {peak / 2**30:.3f} GiB")
         del frame
     del tiled
-    return launched["ray_march_aa"]
+    return launched["ray_march_aa"], v2_tile_phase(launches, reset_counts,
+                                                    tile_devs)
+
+
+def v2_tile_phase(launches, reset_counts, tile_devs) -> int:
+    """Phase 6d: the V2 disk in TILES row bands -> the ray_march_slim band
+    launches of the FHD and 4K V2 stills."""
+    import bhr_tpu_torch.cli as cli
+    from bhr_tpu_torch.config import SceneConfig
+    from bhr_tpu_torch.modes import render_image
+    from bhr_tpu_torch.parallel.frames import render_image_tiled
+
+    def tiled_vs_whole(what, tiled_cfg, whole_cfg, shape):
+        with counted_plain_traces() as plain_calls:
+            reset_counts()
+            tiled = render_image_tiled(tiled_cfg, devices=tile_devs)
+            launched = dict(launches)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        whole = render_image(whole_cfg)
+        peak = torch.cuda.max_memory_allocated()
+        diff = np.abs(tiled - whole)
+        say(f"[tiles {what}] {TILES} bands vs the whole frame: max "
+            f"{diff.max():.3e}, {int((diff > 0).any(axis=-1).sum())} of "
+            f"{diff.shape[0] * diff.shape[1]} pixels differ; ray_march_slim band "
+            f"launches {launched['ray_march_slim']}, plain trace calls "
+            f"{plain_calls[0]}; whole frame's peak memory {peak / 2**30:.3f} GiB")
+        check(tiled.shape == shape and np.isfinite(tiled).all()
+              and tiled.max() > 0.5, f"tiled {what}: shape, finite or dark")
+        check(diff.max() <= TOL_TILED, f"tiled {what} vs whole {diff.max()}")
+        others = {k: v for k, v in launched.items() if k != "ray_march_slim" and v}
+        check(launched["ray_march_slim"] == TILES and not others
+              and not plain_calls[0],
+              f"tiled {what} launched {launched}, plain {plain_calls[0]}")
+        return tiled, launched["ray_march_slim"]
+
+    golden = {**GOLDEN, **V2_SCENES["v2"]}
+    img, _ = tiled_vs_whole(
+        "golden v2", SceneConfig(device="cuda", tile_shards=TILES, **golden),
+        SceneConfig(device="cuda", **golden), (180, 320, 3))
+    d_max, d_mean = golden_diff(img, "e2e_cpu_v2")
+    say(f"[tiles golden v2] vs e2e_cpu_v2.npz max {d_max:.3e} mean {d_mean:.3e}")
+    check(d_max <= 5e-2 and d_mean <= 5e-4, "tiled golden v2 outside bounds")
+    n_launched = 0
+    for res, shape in (("fhd", (1080, 1920, 3)), ("4k", (2160, 3840, 3))):
+        flags = ["-r", res, *V2_FLAGS["v2sci"]]
+        parse = cli.build_parser().parse_args
+        _, n = tiled_vs_whole(
+            f"{res} v2sci",
+            cli.config_from_args(parse([*flags, "--tile_shards", str(TILES)])),
+            cli.config_from_args(parse(flags)), shape)
+        n_launched += n
+    return n_launched
 
 
 class _Tee(io.StringIO):
@@ -740,7 +979,6 @@ def video_phase(launches, reset_counts) -> dict:
     from bhr_tpu_torch import native
     from bhr_tpu_torch.config import SceneConfig
     from bhr_tpu_torch.modes import render_video, video_temp_paths
-    from bhr_tpu_torch.ops import geodesic_cuda
     from bhr_tpu_torch.parallel.video import render_video_sharded
     from bhr_tpu_torch.utils.io import (
         decode_png_rgb8,
@@ -750,12 +988,8 @@ def video_phase(launches, reset_counts) -> dict:
     )
 
     # Every call of the plain trace is counted while the videos render.
-    plain_calls = [0]
-    real_plain = geodesic_cuda.trace_geodesics
-
-    def counted_plain(*args, **kwargs):
-        plain_calls[0] += 1
-        return real_plain(*args, **kwargs)
+    counting = contextlib.ExitStack()
+    plain_calls = counting.enter_context(counted_plain_traces())
 
     def reset():
         reset_counts()
@@ -805,7 +1039,6 @@ def video_phase(launches, reset_counts) -> dict:
     check(all(equal), "the batch's background differs from the per-frame calls")
     del batch, singles
 
-    geodesic_cuda.trace_geodesics = counted_plain
     try:
         # 7a. the golden video through the batched engine
         cfg = video_cfg("golden")
@@ -882,6 +1115,66 @@ def video_phase(launches, reset_counts) -> dict:
         expect_video_launches(launched, "ray_march_slim", 8, plain_calls,
                               "sequential video")
 
+        # 7e. the golden orbit with the V2 disk, structure on
+        v2 = dict(V2_SCENES["v2sci"])
+        cfg = video_cfg("v2_golden", frames_per_dispatch=4, **v2)
+        reset()
+        stats = render_video_sharded(cfg)
+        expect_video_launches(dict(launches), "ray_march_slim", 8, plain_calls,
+                              "V2 golden video")
+        check("texture" not in stats["stage_ms"], f"V2 video stages {stats}")
+        paths, progress_file = frame_files(cfg)
+        whole = read_bytes(paths)
+        frames = [decode_png_rgb8(b).astype(np.int32) for b in whole]
+        moved = np.abs(frames[0] - frames[4]).max()
+        say(f"[video v2] golden orbit, V2 disk: 8 ray_march_slim launches; PNG "
+            f"frames 0 and 4 differ by up to {moved} uint8 steps")
+        check(all(f.shape == (180, 320, 3) and f.max() > 128 for f in frames)
+              and moved > 16, "V2 video frames dark or standing still")
+        seq_cfg = video_cfg("v2_sequential", **v2)
+        reset()
+        render_video(seq_cfg)
+        expect_video_launches(dict(launches), "ray_march_slim", 8, plain_calls,
+                              "sequential V2 video")
+        steps = [np.abs(load_png_rgb8(p).astype(np.int32) - f)
+                 for p, f in zip(frame_files(seq_cfg)[0], frames)]
+        say(f"[video v2] sequential vs batched: frame 0 "
+            f"{(steps[0] != 0).mean():.4%} of values differ, largest step "
+            f"{steps[0].max()}; over all 8 frames largest step "
+            f"{max(s.max() for s in steps)}")
+        check(max(s.max() for s in steps) <= 1,
+              "V2 engines differ by more than one uint8 step")
+        for path in paths[4:]:
+            os.remove(path)
+        with open(progress_file) as f:
+            progress = json.load(f)
+        check(progress["completed"] == list(range(8)) and len(
+            progress["params"]["v2"]) == 18, f"V2 progress {progress}")
+        write_json_atomic(progress_file, dict(progress, completed=[0, 1, 2, 3]))
+        reset()
+        stats = render_video_sharded(dataclasses.replace(cfg, resume=True))
+        launched = dict(launches)
+        resumed = read_bytes(paths)
+        say(f"[video v2 resume] frames 4-7 rendered again: ray_march_slim launches "
+            f"{launched['ray_march_slim']}; "
+            f"{sum(a == b for a, b in zip(whole, resumed))} of 8 PNGs byte-equal "
+            f"to the uninterrupted run's")
+        check(stats["frames"] == 4, f"V2 resume rendered {stats['frames']} frames")
+        expect_video_launches(launched, "ray_march_slim", 4, plain_calls,
+                              "V2 resume")
+        check(resumed == whole, "resumed V2 PNGs differ from the uninterrupted run's")
+        reset()
+        stats = render_video_sharded(dataclasses.replace(cfg, resume=True,
+                                                         v2_samples=4))
+        launched = dict(launches)
+        say(f"[video v2 resume] changed v2_samples with resume: wiped, "
+            f"{stats['frames']} frames, ray_march_slim launches "
+            f"{launched['ray_march_slim']}")
+        expect_video_launches(launched, "ray_march_slim", 8, plain_calls,
+                              "V2 resume with a changed v2_samples")
+        check(stats["frames"] == 8 and read_bytes(paths)[0] != whole[0],
+              "a changed v2_samples did not render the video anew")
+
         # 7d. full width, through the CLI
         path_launches = {}
         n_cards = torch.cuda.device_count()
@@ -930,7 +1223,12 @@ def video_phase(launches, reset_counts) -> dict:
                 say(f"[video fhd {tag}] probe_video: {probe}, "
                     f"{os.path.getsize(out)} bytes")
                 check(probe == (n_frames, 1920, 1080), f"probe {probe}")
-            path_launches[expected] = launched[expected]
+            path_launches[expected] = (path_launches.get(expected, 0)
+                                       + launched[expected])
+            if tag == "v2":
+                check("texture" not in stats["stage_ms"]
+                      and "background" not in stats["stage_ms"],
+                      f"V2 video reported a texture stage: {stats['stage_ms']}")
             if tag == "default":
                 for level in (1, 2, 6):
                     t0 = time.perf_counter()
@@ -960,7 +1258,7 @@ def video_phase(launches, reset_counts) -> dict:
                         f"{stats['fps']:.3f}, {steady})")
         return path_launches
     finally:
-        geodesic_cuda.trace_geodesics = real_plain
+        counting.close()
 
 
 def main() -> int:
@@ -1082,6 +1380,32 @@ def main() -> int:
                   f"golden {scene}: no dark shadow")
         images[scene] = img
 
+    # 4 (V2). the volume disk's goldens: the slim kernel once, hits
+    # recorded, and never the no-disk kernel or the plain trace.
+    for scene, extra in {**V2_SCENES, "v2 + anti_alias": dict(
+            V2_SCENES["v2"], anti_alias="lod_radius")}.items():
+        with counted_plain_traces() as plain_calls:
+            reset_counts()
+            img = render_image(SceneConfig(device="cuda", **{**GOLDEN, **extra}))
+            launched = dict(launches)
+        family = scene.split()[0]
+        d_max, d_mean = golden_diff(img, f"e2e_cpu_{family}")
+        center = img[90 - 16: 90 + 16, 160 - 16: 160 + 16]
+        say(f"[golden {scene}] vs e2e_cpu_{family}.npz max {d_max:.3e} mean "
+            f"{d_mean:.3e}; ray_march_slim launches {launched['ray_march_slim']}, "
+            f"ray_march_nodisk {launched['ray_march_nodisk']}, plain trace calls "
+            f"{plain_calls[0]}")
+        check(np.isfinite(img).all() and d_max <= 5e-2 and d_mean <= 5e-4,
+              f"golden {scene} outside bounds")
+        expect_launches(launched, "ray_march_slim", f"golden {scene}")
+        check(not plain_calls[0], f"golden {scene} ran the plain trace")
+        check(img.max() > 0.5 and (center.sum(axis=-1) < 0.05).mean() > 0.5,
+              f"golden {scene}: no bright disk or no dark shadow")
+        if family != scene:
+            check(np.array_equal(img, images[family]),
+                  "V2 with anti_alias differs from V2 without")
+        images[scene] = img
+
     # 5. the main paths at full width
     path_launches = {}
 
@@ -1095,10 +1419,31 @@ def main() -> int:
             f"({os.path.getsize(out_png)} bytes) in {time.perf_counter() - t0:.2f} s; "
             f"{expected} launches {launched[expected]}")
         expect_launches(launched, expected, f"FHD {tag} frame")
-        path_launches[expected] = launched[expected]
+        path_launches[expected] = path_launches.get(expected, 0) + launched[expected]
 
     cli_frame("default", [], "ray_march_slim")
     cli_frame("aa_flare", AA_FLAGS, "ray_march_aa")
+    # This slice's path: the V2 volume disk, plain and with the structure
+    # flags and the scientific palette.
+    with counted_plain_traces() as plain_calls:
+        for tag, flags in V2_FLAGS.items():
+            cli_frame(tag, flags, "ray_march_slim")
+    check(not plain_calls[0], "an FHD V2 frame ran the plain trace")
+    for tag, flags in V2_FLAGS.items():
+        v2_cfg = cli.config_from_args(cli.build_parser().parse_args(
+            ["-r", "fhd", *flags]))
+        med, host_ms, busy, n_kernels, frame = v2_stage_times(v2_cfg)
+        check(bool(torch.isfinite(frame).all()) and frame.shape == (1080, 1920, 3)
+              and float(frame.max()) > 0.5, f"FHD {tag} frame not finite or dark")
+        say(f"[fhd-frame {tag}] median ms over 3 frames: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in med.items())
+            + f"; total {sum(med.values()):.3f} (no texture stage); host "
+            f"{host_ms:.3f} ms to enqueue a frame; device busy "
+            + ("not measured (the profiler reported no device time)"
+               if busy is None else f"{busy:.1%} of a frame's wall time, in "
+               f"{n_kernels} kernels and copies"))
+        v2_shade_split(v2_cfg, tag)
+        del frame
 
     cfg = SceneConfig(resolution="fhd", device="cuda").validated()
     aa_cfg = cli.config_from_args(cli.build_parser().parse_args(
@@ -1170,6 +1515,24 @@ def main() -> int:
                    cfg_4k.disk_inner_radius, cfg_4k.disk_outer_radius,
                    2 * h_4k // TILES, h_4k // TILES, 3)
 
+    # The V2 4K still's launches of phase 6d, with the V2 scene's escape
+    # radius, disk radii and tilt and FHD's tolerances: ray_march_slim's
+    # band 2 of 4 against the plain band and the whole-frame kernel's
+    # rows, and the whole frame against its plain version.
+    v2_4k = cli.config_from_args(cli.build_parser().parse_args(
+        ["-r", "4k", *V2_FLAGS["v2sci"]]))
+    check(tuple(v2_4k.image_size) == (w_4k, h_4k) and not v2_4k.use_ray_differentials,
+          f"4K V2 scene {v2_4k.image_size}")
+    v2_4k_args = (w_4k, h_4k, v2_4k.fov, v2_4k.disk_tilt, v2_4k.step_size,
+                  escape_radius(v2_4k.r_max, v2_4k.pov),
+                  v2_4k.disk_inner_radius, v2_4k.disk_outer_radius)
+    res = trace_pair("ray_march_slim", *v2_4k_args, 3)
+    check_pair("3840x2160 v2", "ray_march_slim", res, exact=False,
+               outliers_allowed=True)
+    check_band("ray_march_slim", res[0], *v2_4k_args, 2 * h_4k // TILES,
+               h_4k // TILES, 3)
+    del res
+
     for name, s in steps.items():
         base = name.removesuffix("_steps")
         total = float(s.sum())
@@ -1214,7 +1577,9 @@ def main() -> int:
     del traces
 
     # 6b, 6c. the tile path
-    path_launches["ray_march_aa"] += tile_phase(launches, reset_counts)
+    aa_bands, v2_bands = tile_phase(launches, reset_counts)
+    path_launches["ray_march_aa"] += aa_bands
+    path_launches["ray_march_slim"] += v2_bands
 
     # 7. the orbit video
     for name, n in video_phase(launches, reset_counts).items():

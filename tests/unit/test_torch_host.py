@@ -29,8 +29,8 @@ from bhr_tpu_torch.models.skybox import generate_skybox as t_generate_skybox
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-# Scene fields the two SceneConfigs share (the port drops the V2 knobs
-# and video batching, and names torch devices).
+# Scene fields the two SceneConfigs share (the port drops the settings
+# of modes it does not have yet, and names torch devices).
 _SHARED = [f.name for f in dataclasses.fields(tcfg.SceneConfig)
            if f.name != "device"]
 
@@ -45,6 +45,10 @@ def test_port_imports_no_jax():
         "import bhr_tpu_torch, bhr_tpu_torch.cli, bhr_tpu_torch.modes\n"
         "import bhr_tpu_torch.interop, bhr_tpu_torch.ops.geodesic_cuda\n"
         "import bhr_tpu_torch.parallel.video, bhr_tpu_torch.native\n"
+        "import bhr_tpu_torch.models.disk_v2 as v2, importlib, pkgutil\n"
+        "for m in pkgutil.iter_modules(v2.__path__):\n"
+        "    importlib.import_module(v2.__name__ + '.' + m.name)\n"
+        "assert 'bhr_tpu_torch.models.disk_v2.preview' in sys.modules\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'bhr_tpu'))\n"
         "print(bad)\n"

@@ -10,8 +10,8 @@
   within the cross-backend bounds of ``tests/e2e_render.py``: max
   |diff| <= 5e-2 and mean <= 5e-4 (the AA and flare goldens are in
   ``test_torch_aa.py``).
-* The CLI writes a PNG, with AA and lens flare too; every unported
-  feature raises, and so do more row bands than devices.
+* The CLI writes a PNG, with AA and lens flare and for the V2 disk too;
+  every unported feature raises, and so do more row bands than devices.
 """
 
 import os
@@ -273,8 +273,27 @@ def test_cli_renders_ported_features(flags, tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--video", "--disk_model", "v2"], ["--interactive"], ["--disk_model", "v2"],
+    ["--disk_model", "v2"],
+    ["--disk_model", "v2", "--v2_structure", "--v2_palette", "scientific"],
+])
+def test_cli_renders_v2_disk(flags, tmp_path):
+    out = tmp_path / "frame.png"
+    args = ["--width", "64", "--height", "36", "--fov", "60", "--n_stars", "100",
+            "--disk_outer_radius", "3.5", "--disk_tilt", "15", "--device", "cpu",
+            "-o", str(out)] + flags
+    assert cli.main(args) == 0
+    config = cli.config_from_args(cli.build_parser().parse_args(args))
+    assert config.disk_model == "v2" and not config.use_ray_differentials
+    assert config.v2_structure == ("--v2_structure" in flags)
+    img = _read_png_rgb8(out)
+    np.testing.assert_array_equal(img, quantize_frame(render_image(config)))
+    assert img.max() > 128  # the disk is lit
+
+
+@pytest.mark.parametrize("flags", [
+    ["--interactive"], ["--disk_model", "v2", "--interactive"],
     ["--disk_texture", "auto"], ["--coordinator_address", "localhost:1234"],
+    ["--disk_model", "v2", "--coordinator_address", "localhost:1234"],
 ])
 def test_cli_refuses_unported_features(flags, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

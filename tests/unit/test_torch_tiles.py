@@ -312,7 +312,14 @@ def test_default_mesh_without_gpu_raises():
         make_frame_mesh()
 
 
-def test_v2_with_tiles_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 12"):
-        SceneConfig(disk_model="v2", tile_shards=4, device="cpu",
-                    **STILL).validated()
+def test_v2_with_tiles_renders_the_whole_frame():
+    """A V2 still in 4 row bands validates, launches a recorded-hits band
+    trace per band and equals the whole frame within the tiled bar."""
+    cfg = SceneConfig(disk_model="v2", tile_shards=4, device="cpu",
+                      **STILL).validated()
+    stages = []
+    tiled = render_image_tiled(cfg, devices=[CPU] * 4, on_stage=stages.append)
+    assert "disk_texture" not in stages and stages.count("trace") == 1
+    whole = render_image(SceneConfig(disk_model="v2", device="cpu", **STILL))
+    assert tiled.shape == whole.shape and tiled.max() > 0.2
+    np.testing.assert_allclose(tiled, whole, rtol=0, atol=2e-5)

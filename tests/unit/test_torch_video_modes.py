@@ -2,8 +2,8 @@
 the CPU.
 
 * ``video_temp_paths`` and ``video_resume_params`` equal ``bhr_tpu``'s
-  for the same texture-model config (the dicts compare equal, so either
-  package can read the other's ``progress.json``).
+  for the same config, texture model or V2 (the dicts compare equal, so
+  either package can read the other's ``progress.json``).
 * The port's counterparts of the video tests of
   ``tests/unit/test_modes.py``, each for the sequential engine
   (``frame_shards=1``, what ``device="cpu"`` runs by default) and for the
@@ -14,9 +14,9 @@ the CPU.
   engine marker does not; the sequential engine pins its escape radius;
   ``generation_scale`` is keyed.
 * The CLI's video flags have ``bhr_tpu``'s defaults, ``--video`` reaches
-  ``modes.render_video``, the multi-host flags and ``--video --disk_model
-  v2`` are refused naming their ROADMAP items, and ``--device cuda``
-  without a GPU raises.
+  ``modes.render_video``, ``--video --disk_model v2`` renders, the
+  multi-host flags and ``--interactive`` are refused naming their ROADMAP
+  items, and ``--device cuda`` without a GPU raises.
 """
 
 import dataclasses
@@ -111,7 +111,10 @@ def test_video_temp_paths_match(output):
     {"anti_alias": "lod_radius", "aa_strength": 1.5, "lens_flare": True},
     {"orbit": False, "seed": 7, "pov": (8, 1, 2), "disk_rotation_speed": 0.05},
     {"resolution": "4k", "width": None, "height": None, "texture": "sky.png"},
-], ids=["default", "aa_flare", "static_camera", "4k"])
+    {"disk_model": "v2"},
+    {"disk_model": "v2", "v2_palette": "scientific", "v2_structure": True,
+     "v2_samples": 4, "v2_h0": 0.08, "v2_hotspot_count": 5, "seed": 3},
+], ids=["default", "aa_flare", "static_camera", "4k", "v2", "v2_knobs"])
 @pytest.mark.parametrize("sharded", [False, True])
 def test_video_resume_params_match(extra, sharded):
     kw = dict(TINY, video=True, **extra)
@@ -120,7 +123,11 @@ def test_video_resume_params_match(extra, sharded):
     assert ours == theirs
     # Equal as JSON too, types included: what progress.json holds.
     assert json.dumps(ours, sort_keys=True) == json.dumps(theirs, sort_keys=True)
-    assert "v2" not in ours and "generation_scale" in ours
+    # The V2 block and the texture's generation scale: one or the other.
+    is_v2 = extra.get("disk_model") == "v2"
+    assert ("v2" in ours) == is_v2 and ("generation_scale" in ours) != is_v2
+    if is_v2:
+        assert len(ours["v2"]) == 18
 
 
 def test_resume_params_key_generation_scale(tiny_cfg):
@@ -385,13 +392,29 @@ def test_cli_renders_a_video(tmp_path, capsys):
     (["--coordinator_address", "localhost:1234"], "item 17"),
     (["--video", "--coordinator_address", "localhost:1234",
       "--num_processes", "2", "--process_id", "0"], "item 17"),
-    (["--video", "--disk_model", "v2"], "item 12"),
     (["--video", "--orbit", "--interactive"], "item 13"),
+    (["--video", "--disk_model", "v2", "--interactive"], "item 13"),
 ])
 def test_cli_refuses_unported_video_features(flags, item, tmp_path):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {item}"):
         cli.main(flags + ["--device", "cpu", "-o", str(tmp_path / "x.mp4")])
     assert os.listdir(tmp_path) == []
+
+
+def test_cli_renders_v2_video(tmp_path, capsys):
+    """``--video --disk_model v2`` renders through the sequential engine
+    (what ``--device cpu`` runs): no texture stage, frames that move."""
+    args = ["--video", "--orbit", "--disk_model", "v2", "--n_frames", "2",
+            "--fps", "2", "--width", "32", "--height", "16", "--fov", "60",
+            "--step_size", "0.3", "--n_stars", "50", "--ar2", "3.5",
+            "--disk_tilt", "15", "--orbit_degrees", "90", "--device", "cpu",
+            "-o", str(tmp_path / "x.mp4")]
+    assert cli.main(args) == 0
+    first, last = (load_png_rgb8(p) for p in _frames(tmp_path))
+    assert (first != last).any() and first.max() > 64
+    _, progress = _progress(tmp_path)
+    assert progress["completed"] == [0, 1]
+    assert progress["params"]["v2"]["samples"] == 8
 
 
 @pytest.mark.parametrize("flags", [["--num_processes", "2"], ["--process_id", "0"]])
