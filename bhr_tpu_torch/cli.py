@@ -1,17 +1,21 @@
-"""Command-line interface of the PyTorch/CUDA port (stills and video).
+"""Command-line interface of the PyTorch/CUDA port (stills, video and
+the interactive session).
 
-The port of ``bhr_tpu/cli.py`` for the single-frame and video modes: the
-same scene flags and defaults (reference render.py:4518-4695), plus
-``--width`` / ``--height``, with ``--device`` choosing ``cuda`` (the
-default) or ``cpu``. ``--tile_shards N`` renders a still's pixel rows in
+The port of ``bhr_tpu/cli.py``: the same scene flags and defaults
+(reference render.py:4518-4695), plus ``--width`` / ``--height``, with
+``--device`` choosing ``cuda`` (the default) or ``cpu``. ``--tile_shards N`` renders a still's pixel rows in
 N bands, one per visible device of the ``--device`` kind. ``--video``
 renders an orbit (``--orbit``) or static-camera video with resumable
 per-frame checkpoints (``--resume``). ``--disk_model v2`` shades the disk
-by volume integration (the ``--v2_*`` group) in all of these. The
-switches of modes the port does not have yet (--interactive,
---disk_texture auto, --coordinator_address) are parsed and refused with
-NotImplementedError, naming the ROADMAP item that ports them; those
-modes' own settings return with them.
+by volume integration (the ``--v2_*`` group) in all of these.
+``--interactive`` opens the live session (``interactive.py``): a window
+where there is a display, an MJPEG stream over HTTP with
+``--preview_port``, else a short PNG preview. ``--coordinator_address
+HOST:PORT --num_processes N --process_id K`` joins N processes into one
+fleet that renders an orbit video together (``parallel/video.py``); each
+process renders on the devices visible to it. ``--disk_texture auto`` is
+the one switch still refused with NotImplementedError, naming the
+ROADMAP item that ports it.
 
 Usage:
     python -m bhr_tpu_torch.cli --pov 6 0 0.5 --fov 90 -r fhd -o out/frame.png
@@ -21,6 +25,10 @@ Usage:
     python -m bhr_tpu_torch.cli -r fhd --disk_model v2 --v2_palette scientific
     python -m bhr_tpu_torch.cli --video --orbit -r fhd --n_frames 240 \\
         --fps 24 -o out/orbit.mp4          # add --resume to continue
+    python -m bhr_tpu_torch.cli --interactive --preview_port 8089
+    # two processes, one video (here both on this machine):
+    python -m bhr_tpu_torch.cli --video --orbit -o out/orbit.mp4 \
+        --coordinator_address localhost:29500 --num_processes 2 --process_id 0
 """
 
 from __future__ import annotations
@@ -118,6 +126,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="single-frame row sharding over this many devices")
     p.add_argument("--video", action="store_true")
     p.add_argument("--interactive", action="store_true")
+    p.add_argument("--preview_port", type=int, default=0,
+                   help="with --interactive on a headless host: serve "
+                        "the live render as MJPEG over HTTP on this "
+                        "port (keys injected via /key?k=...)")
+    p.add_argument("--preview_host", type=str, default="127.0.0.1",
+                   help="bind address for --preview_port (loopback by "
+                        "default: /key is unauthenticated; pass "
+                        "0.0.0.0 to expose beyond this host)")
     p.add_argument("--orbit", action="store_true")
     p.add_argument("--orbit_degrees", type=float, default=360.0,
                    help="total orbit sweep (negative = reverse)")
@@ -129,11 +145,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", action="store_true")
     p.add_argument("--disk_rotation_speed", type=float, default=0.1)
     p.add_argument("--coordinator_address", type=str, default=None,
-                   help="multi-host rendering (not ported yet)")
+                   help="multi-host rendering: host:port where process 0 "
+                        "listens (run one process per host, or per card; "
+                        "frames shard over all processes' devices with no "
+                        "traffic between them; they share the output "
+                        "directory)")
     p.add_argument("--num_processes", type=int, default=None,
-                   help="multi-host: total process count (not ported yet)")
+                   help="multi-host: total process count "
+                        "(with --coordinator_address)")
     p.add_argument("--process_id", type=int, default=None,
-                   help="multi-host: this process's rank (not ported yet)")
+                   help="multi-host: this process's rank "
+                        "(with --coordinator_address)")
     p.add_argument("--seed", type=int, default=42)
     return p
 
@@ -182,26 +204,80 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     if args.coordinator_address is None and (
             args.num_processes is not None or args.process_id is not None):
+        # Without the coordinator this process would run a normal
+        # single-process render racing the real fleet's frame directory
+        # and progress file on the shared filesystem.
         parser.error("--num_processes/--process_id require "
                      "--coordinator_address")
-    if args.coordinator_address is not None:
-        raise NotImplementedError(
-            "--coordinator_address (multi-host video) is not ported to "
-            "bhr_tpu_torch yet (ROADMAP.md Queue 1 item 17)")
+    if args.coordinator_address is not None and (
+            args.num_processes is None or args.process_id is None):
+        parser.error("--coordinator_address requires --num_processes and "
+                     "--process_id")
     config = config_from_args(args)
+    if args.coordinator_address is None:
+        return _run(config, args)
 
-    if config.video:
+    from .parallel.mesh import initialize_multihost, shutdown_multihost
+
+    initialize_multihost(args.coordinator_address, args.num_processes,
+                         args.process_id)
+    try:
+        _check_fleet_mode(parser, config)
+        return _run(config, args)
+    finally:
+        shutdown_multihost()
+
+
+def _check_fleet_mode(parser, config: SceneConfig) -> None:
+    """Print the fleet's size on process 0 and end every process (exit
+    code 2) unless the run is one the fleet can share."""
+    import torch
+
+    from .config import torch_device
+    from .parallel.mesh import fleet_slot_counts, process_count, process_index
+
+    n_local = (torch.cuda.device_count()
+               if torch_device(config.device).type == "cuda" else 1)
+    total = sum(fleet_slot_counts(n_local))
+    if process_index() == 0:
+        print(f"multi-host: {process_count()} processes, "
+              f"{total} devices total")
+    if process_count() > 1:
+        # Only the batched video engine knows of the fleet; any other
+        # mode would run N duplicated renders against the same output
+        # files. The predicate render_video dispatches on, plus the
+        # all-devices frame_shards the engine itself insists on (failing
+        # here keeps the message actionable), on every process.
+        from .modes import sharded_video_eligible
+
+        if not (config.video
+                and not config.interactive
+                and sharded_video_eligible(config)
+                and config.frame_shards in (0, total)):
+            parser.error(
+                "multi-host runs support only sharded orbit video: "
+                "--video without --interactive/--disk_texture, "
+                f"and --frame_shards 0 (all devices) or {total}"
+            )
+
+
+def _run(config: SceneConfig, args: argparse.Namespace) -> int:
+    if config.interactive:
+        from .interactive import run_interactive
+
+        run_interactive(config, preview_port=args.preview_port,
+                        preview_host=args.preview_host)
+    elif config.video:
         from .modes import render_video
 
         print("Video stats: " + json.dumps(render_video(config)))
-        return 0
+    else:
+        from .modes import render_image
+        from .utils.io import save_image
 
-    from .modes import render_image
-    from .utils.io import save_image
-
-    img = render_image(config)
-    save_image(img, config.output)
-    print(f"Saved: {config.output}")
+        img = render_image(config)
+        save_image(img, config.output)
+        print(f"Saved: {config.output}")
     return 0
 
 

@@ -2,9 +2,8 @@
 
 The port of ``bhr_tpu/config.py``. The fields it shares and their
 validation rules are the same, so a scene means the same thing in both
-packages. It leaves out the settings of modes it does not have yet
-(interactive, the static texture generator, deprecated flags), and
-differs in two ways:
+packages. It leaves out the settings of what it does not have (the
+static texture generator, deprecated flags), and differs in two ways:
 
 * ``device`` names a torch device, ``"cuda"`` (the default) or
   ``"cpu"``, and :func:`torch_device` refuses ``"cuda"`` on a host
@@ -98,8 +97,7 @@ class SceneConfig:
     anti_alias: str = "disabled"  # "disabled" | "lod_radius"
     aa_strength: float = 1.0
 
-    # Modes (interactive is refused until ported; its other settings
-    # return with it). The orbit settings place the cameras of
+    # Modes. The orbit settings place the cameras of
     # parallel.frames.cameras_for_orbit.
     video: bool = False
     interactive: bool = False
@@ -287,11 +285,10 @@ class SceneConfig:
 
 
 # (predicate, feature, ROADMAP item that ports it). The still frame
-# (whole or in row bands) and the orbit video, of a texture-model scene
-# with AA and lens flare or of a V2 volume disk, are what the port
-# renders so far.
+# (whole or in row bands), the orbit video (one process or a fleet) and
+# the interactive session, of a texture-model scene with AA and lens
+# flare or of a V2 volume disk, are what the port renders so far.
 _UNPORTED = (
-    (lambda c: c.interactive, "--interactive", "Queue 1 item 13"),
     (lambda c: c.disk_texture == "auto", "--disk_texture auto",
      "Queue 1 item 14"),
 )

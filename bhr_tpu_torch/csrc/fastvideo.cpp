@@ -11,8 +11,8 @@
 //   fastvideo_probe                                           — container check
 //   fastvideo_read_frame0                                     — decode for tests
 //
-// Encoder: libx264, yuv420p, preset veryfast, one thread, CRF from the
-// caller. Input frames are interleaved RGB24 converted by swscale.
+// Encoder: libx264, yuv420p, preset veryfast, one thread, no mbtree,
+// CRF from the caller. Input frames are interleaved RGB24 converted by swscale.
 // No exceptions cross the boundary; every call returns an error code
 // (0 = success) and close() is safe after partial failures.
 
@@ -167,6 +167,15 @@ void *fastvideo_open(const char *path, int32_t width, int32_t height,
   // invariant).
   v->enc->thread_count = 1;
   av_opt_set(v->enc->priv_data, "preset", "veryfast", 0);
+  // Macroblock-tree rate control off: with it on, libx264 reads memory
+  // it allocated and never wrote, so the stream's size followed whatever
+  // the process's heap last held (seen by filling fresh allocations with
+  // different bytes, glibc's M_PERTURB: 5 frames of 64x36, 192x90 and
+  // most widths between gave 2-3 different streams, and none differed
+  // with mbtree=0 or bframes=0). CRF rate control without the tree is a
+  // pure function of the frames. Not a libx264 build: the option is
+  // unknown and the call fails harmlessly.
+  av_opt_set(v->enc->priv_data, "mbtree", "0", 0);
   char crf_s[8];
   std::snprintf(crf_s, sizeof crf_s, "%d", crf);
   if (av_opt_set(v->enc->priv_data, "crf", crf_s, 0) < 0) {

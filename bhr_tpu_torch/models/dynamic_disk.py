@@ -71,10 +71,33 @@ def _recompute_stats(comp, edge, enable_rt: bool = True):
     return density_p98, struct_scale, torch.stack([struct_max, struct_p70], dim=1)
 
 
+# Solo-component debug pairs (density slice <-> its temperature slice),
+# reference compose_interactive_texture (render.py:3728-3753).
+_SOLO_PAIRS = {
+    0: [], 1: [2], 2: [1], 3: [4], 4: [3], 5: [6], 6: [5],
+    7: [8], 8: [7], 9: [10], 10: [9], 11: [], 12: [],
+}
+
+
+def solo_comp(comp: torch.Tensor, solo_idx: int) -> torch.Tensor:
+    """Zero all components except the soloed density/temp pair;
+    disturb_mod (slice 12) becomes the neutral multiplier 1. One masked
+    select. Module-level so that the batched engine (``parallel/video.py``,
+    which the interactive session renders through) and
+    ``DynamicDiskSystem.advance`` share the same mask."""
+    keep = {solo_idx} | set(_SOLO_PAIRS.get(solo_idx, []))
+    mask = torch.tensor([i in keep for i in range(13)], dtype=torch.bool,
+                        device=comp.device)[:, None, None]
+    fill = torch.zeros(13, dtype=comp.dtype, device=comp.device)
+    fill[12] = 1.0
+    return torch.where(mask, comp, fill[:, None, None])
+
+
 def frame_texture(fil, hs, rt, omega_rows, edge, t: float, *, n_r: int,
                   n_phi: int, az_freq: float, az_shear: float, r_inner: float,
                   r_outer: float, generation_scale: int, color_temp: float,
-                  enable_rt: bool = True, stats=None, background=None):
+                  enable_rt: bool = True, stats=None, background=None,
+                  solo_idx: int = -1):
     """One frame's disk texture from packed entity rows, as tensors on
     one device: ``fil`` (MF, 8), ``hs`` (MH, 8), ``rt`` (MR, 8) float32
     (``pack_filaments`` / ``pack_timer_entities``), the per-row
@@ -88,8 +111,12 @@ def frame_texture(fil, hs, rt, omega_rows, edge, t: float, *, n_r: int,
     ``DynamicDiskSystem.advance`` and the batched video engine
     (``parallel/video.py``) make their textures here.
 
-    Returns ((n_r, n_phi, 4) RGBA texture, (13, n_r, n_phi) component
-    field, the stats used).
+    ``solo_idx`` >= 0 composes the solo-component debug view: the field
+    is masked by :func:`solo_comp` before the stats (``stats=None`` then
+    normalizes the view with its own) and the compose.
+
+    Returns ((n_r, n_phi, 4) RGBA texture, the whole (13, n_r, n_phi)
+    component field (never the masked one), the stats used).
     """
     device = omega_rows.device
     bg = background
@@ -102,10 +129,11 @@ def frame_texture(fil, hs, rt, omega_rows, edge, t: float, *, n_r: int,
         fil, hs, rt, omega_rows, n_r, n_phi, phi_scale=generation_scale,
     )
     comp = assemble_comp(bg, staging)
+    shown = solo_comp(comp, solo_idx) if solo_idx >= 0 else comp
     if stats is None:
-        stats = _recompute_stats(comp, edge, enable_rt)
+        stats = _recompute_stats(shown, edge, enable_rt)
     tex = compose_from_components(
-        comp, edge, *stats, enable_rt,
+        shown, edge, *stats, enable_rt,
         torch.tensor(color_temp, dtype=torch.float32, device=device),
     )
     return tex, comp, stats
@@ -210,7 +238,7 @@ class DynamicDiskSystem:
     def entity_count(self) -> int:
         return sum(len(f.entities) for f in self.factories.values())
 
-    def _frame_texture(self, t: float, stats):
+    def _frame_texture(self, t: float, stats, solo_idx: int = -1):
         """``frame_texture`` of this system's current entities at ``t``."""
         fil, hs, rt = (torch.as_tensor(a, device=self.device)
                        for a in self._pack(t))
@@ -220,17 +248,29 @@ class DynamicDiskSystem:
             az_shear=self.az_shear, r_inner=self.r_inner,
             r_outer=self.r_outer, generation_scale=self.generation_scale,
             color_temp=self.color_temp, enable_rt=self.enable_rt, stats=stats,
+            solo_idx=solo_idx,
         )
 
-    def advance(self, t: float, dt: float,
-                recompute_stats: bool = False) -> torch.Tensor:
+    def advance(self, t: float, dt: float, recompute_stats: bool = False,
+                solo_idx: int = -1) -> torch.Tensor:
         """Tick factories, regenerate the comp field, compose the texture.
 
         Returns the (n_r, n_phi, 4) RGBA texture for time ``t`` on the
-        system's device.
+        system's device. ``solo_idx`` >= 0 returns the solo-component
+        debug view, normalized with stats of the masked field that are
+        for this display only: the stats the system keeps always come
+        from the whole field (as in ``bhr_tpu``, whose deviation from the
+        reference this is: un-soloing resumes at once with the whole
+        field's stats).
         """
         for f in self.factories.values():
             f.tick(now=t, dt=dt)
+        if solo_idx >= 0:
+            tex, self.comp, _ = self._frame_texture(t, None, solo_idx)
+            if recompute_stats:
+                self.density_p98, self.struct_scale, self.row_stats = (
+                    _recompute_stats(self.comp, self.edge, self.enable_rt))
+            return tex
         stats = None if recompute_stats else (
             self.density_p98, self.struct_scale, self.row_stats)
         tex, self.comp, stats = self._frame_texture(t, stats)

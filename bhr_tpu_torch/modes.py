@@ -5,8 +5,8 @@ The port of ``bhr_tpu/modes.py`` (reference ``render_image``,
 render.py:4031-4076, and ``render_video``, render.py:4356-4511): the
 same scene semantics, resume protocol and file layout
 (``.frames_<md5>/``, ``progress.json`` invalidated by a parameter
-change), so either package can resume the other's video. The interactive mode is not ported yet; ``SceneConfig.validated``
-refuses it.
+change), so either package can resume the other's video. The interactive mode
+is ``interactive.py``; it builds its renderer here (``_make_renderer``).
 """
 
 from __future__ import annotations
@@ -79,14 +79,17 @@ def _scene_assets(config: SceneConfig, device) -> tuple:
 
 
 def _make_renderer(config: SceneConfig,
-                   r_escape_override: Optional[float] = None) -> tuple:
+                   r_escape_override: Optional[float] = None,
+                   r_escape_quantum: float = 0.0) -> tuple:
     """Renderer + (optional) dynamic disk system for a config, both on
     ``config.device``. ``r_escape_override`` pins the trace's escape
-    radius (see ``Renderer``)."""
+    radius and ``r_escape_quantum`` rounds it up to a grid (see
+    ``Renderer``)."""
     device = torch_device(config.device)
     skybox, disk_tex, dynamic = _scene_assets(config, device)
     return Renderer(config, skybox, disk_tex, device=device,
-                    r_escape_override=r_escape_override), dynamic
+                    r_escape_override=r_escape_override,
+                    r_escape_quantum=r_escape_quantum), dynamic
 
 
 def render_image(config: SceneConfig) -> np.ndarray:
@@ -249,7 +252,9 @@ def load_video_progress(config: SceneConfig, temp_dir: str,
 def sharded_video_eligible(config: SceneConfig) -> bool:
     """True when ``render_video`` dispatches to the batched engine
     (``parallel/video.py``): on a CUDA device, or when more than one
-    frame shard is asked for or visible. ``frame_shards=1`` opts out
+    frame shard is asked for or visible (every process of a fleet brings
+    at least one, see ``parallel.mesh.initialize_multihost``).
+    ``frame_shards=1`` opts out
     into the sequential per-frame loop, which is also what
     ``device="cpu"`` runs by default (one CPU device). Both disk models
     are eligible: the texture model renders its lifecycle texture per
@@ -257,8 +262,11 @@ def sharded_video_eligible(config: SceneConfig) -> bool:
     time alone. ``device="cuda"`` without a GPU raises here."""
     import torch
 
+    from .parallel.mesh import process_count
+
     device = torch_device(config.device)
     n_devices = torch.cuda.device_count() if device.type == "cuda" else 1
+    n_devices = max(n_devices, process_count())
     return (
         config.disk_texture is None
         and config.disk_model in ("texture", "v2")

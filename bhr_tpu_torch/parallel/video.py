@@ -45,15 +45,26 @@ Not ported, because it is XLA and TPU layout machinery: the
 ``tex_dtype`` / quad-pack / mip-atlas texture storage (the port's
 samplers read plain float32 textures) and the ``_RENDERER_MEMO`` /
 ``_SKYBOX_Q_MEMO`` tables (nothing is traced or compiled per renderer
-here). Not ported yet: the multi-host fleet (ROADMAP.md Queue 1 item
-17).
+here).
+
+A fleet of processes (``parallel.mesh.initialize_multihost``, the CLI's
+``--coordinator_address``) renders one video together. Where ``bhr_tpu``
+runs one sharded program over every host's chips, here every process
+runs this same loop over its own devices: the grid is every process's
+slots in rank order, position p of a batch belongs to slot p % G of the
+G slots, and a process renders and writes the frames of its own slots
+only. Nothing but a bool mask and barriers crosses between processes;
+the output directory is shared. See ``render_video_sharded``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import statistics
+import sys
 import time
+import traceback
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional, Tuple
 
@@ -97,7 +108,16 @@ from ..utils.io import (
     write_json_atomic,
 )
 from .frames import cameras_for_orbit, pack_cameras
-from .mesh import FrameMesh, cuda_devices, make_frame_mesh
+from .mesh import (
+    FrameMesh,
+    cuda_devices,
+    fleet_barrier,
+    fleet_broadcast_mask,
+    fleet_slot_counts,
+    make_frame_mesh,
+    process_count,
+    process_index,
+)
 
 # The stages of one frame, in the order ``on_stage`` reports them;
 # "background" is reported once per device and batch, before its frames.
@@ -148,6 +168,7 @@ def build_sharded_video_renderer(
     az_shear: float,
     generation_scale: Optional[int] = None,
     use_bloom: bool = True,
+    solo_idx: int = -1,
 ):
     """The per-frame dynamic renderer over ``mesh`` (its "tile" axis must
     be 1: a video shards whole frames).
@@ -178,7 +199,12 @@ def build_sharded_video_renderer(
     ("start") and after each of ``frame_stages(config)`` is enqueued, and with
     ``pos=None`` before ("start") and after ("background") each device's
     background pass. ``use_bloom`` is for the interactive mode's
-    toggle; a video always blooms.
+    toggle; a video always blooms. ``solo_idx`` >= 0 (texture model only;
+    ignored for V2) renders the interactive mode's solo-component debug
+    view: the component field is masked to the soloed density/temperature
+    pair (``models.dynamic_disk.solo_comp``) before the frame's stats and
+    compose, so the view is normalized with its own stats, as the staged
+    path's (``DynamicDiskSystem.advance(solo_idx=...)``) is.
     """
     if mesh.shape["tile"] != 1:
         raise ValueError(
@@ -218,6 +244,7 @@ def build_sharded_video_renderer(
                 r_inner=r_inner, r_outer=r_outer,
                 generation_scale=generation_scale,
                 color_temp=DISK_COLOR_TEMPERATURE, background=background,
+                solo_idx=solo_idx,
             )
             mips = (build_mipmaps(tex, levels=MIP_LEVELS) if use_diff
                     else tex[None])
@@ -424,6 +451,28 @@ def _median_ms(values) -> Optional[float]:
     return statistics.median(values) if values else None
 
 
+@contextlib.contextmanager
+def _abort_fleet_on_error(pid: int):
+    """Die loudly instead of stranding the fleet.
+
+    A process that raises between barriers (a full disk while a PNG is
+    written, a device error) would leave every other process waiting in
+    the next barrier until the group's timeout. Exiting hard closes this
+    process's connections, which fails the other processes' barrier at
+    once (and a process that hangs instead is caught by the timeout), so
+    the whole run dies visibly and can be resumed.
+    """
+    try:
+        yield
+    except BaseException:
+        print(f"[process {pid}] fatal error, aborting the fleet:",
+              file=sys.stderr)
+        traceback.print_exc()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(1)
+
+
 def render_video_sharded(config: SceneConfig, devices=None) -> dict:
     """The batched video loop: batches of frames over the device grid,
     with the resume protocol of the sequential path
@@ -435,12 +484,32 @@ def render_video_sharded(config: SceneConfig, devices=None) -> dict:
     device; ``progress.json`` is updated after each batch's PNGs are on
     disk, so an interruption loses at most the two batches in flight.
 
-    Returns the run's statistics: ``frames`` rendered in this run,
+    In a fleet (``parallel.mesh.process_count() > 1``) every process
+    calls this with the same config. The grid is every process's
+    ``devices`` in rank order, G slots in all (``frame_shards`` must be 0
+    or G), and the batch size follows from the config and G alone, so
+    all agree on it. Position p of a batch belongs to slot p % G: a
+    process renders the positions of its own slots and writes their
+    PNGs; a padding repeat is rendered and never written, whichever
+    process it falls on. Process 0 alone reads ``progress.json``,
+    decides between resume and wipe and broadcasts the completed frames;
+    after each batch every process waits for its own PNGs, then for the
+    others at a barrier, then process 0 records the batch. No process
+    holds every frame, so the H.264 encoder does not run inline: process
+    0 assembles the video from the shared frame directory at the end,
+    while the others wait at a last barrier (the processes must share
+    the output directory). An exception on any process ends it with
+    exit code 1 and, through the failed barrier, the others too. Only
+    process 0 prints progress.
+
+    Returns the run's statistics: ``frames`` rendered in this run (by
+    the whole fleet), ``own_frames`` written by this process,
     ``padded`` repeats of the last frame that filled the last batch
     (rendered, never written), ``wall_s``, ``fps`` (frames / wall_s),
     ``steady_fps`` (the frames after the first batch over the time from
     the first batch's enqueueing to the end; None for a single batch),
-    ``assembler`` ("native", "ffmpeg", "mjpeg" or "none"), ``stage_ms``
+    ``assembler`` ("native", "ffmpeg", "mjpeg" or "none"; None on the
+    processes of a fleet that do not assemble), ``stage_ms``
     (per-frame medians: background (a batch's pass over its frames),
     texture, trace, shade, post on the device's clock, fetch on the copy
     stream's, png and h264 on the host's; a V2 video has no background
@@ -448,6 +517,7 @@ def render_video_sharded(config: SceneConfig, devices=None) -> dict:
     ``writer_wait_s`` (how long the main thread waited on the writers).
     """
     from ..modes import (
+        _assemble_video,
         _finish_video,
         load_video_progress,
         video_resume_params,
@@ -461,24 +531,44 @@ def render_video_sharded(config: SceneConfig, devices=None) -> dict:
             "or the V2 volume disk, not an external disk texture")
     is_v2 = config.disk_model == "v2"
     width, height = config.image_size
+    n_proc, pid = process_count(), process_index()
+
+    def say(msg: str) -> None:
+        if pid == 0:
+            print(msg)
+
     if devices is not None:
         devices = [torch.device(d) for d in devices]
     elif torch_device(config.device).type == "cuda":
         devices = cuda_devices()
     else:
         devices = [torch.device("cpu")]
-    n_shards = config.frame_shards or len(devices)
-    if n_shards > len(devices):
-        # Clamped, but never in silence: an explicit shard count above
-        # the visible devices usually means a mis-set machine.
-        print(f"warning: --frame_shards {n_shards} exceeds the "
-              f"{len(devices)} visible devices; using {len(devices)}")
-    n_shards = min(n_shards, len(devices))
-    mesh = make_frame_mesh(n_shards, 1, devices=devices[:n_shards])
+    if n_proc == 1:
+        n_shards = config.frame_shards or len(devices)
+        if n_shards > len(devices):
+            # Clamped, but never in silence: an explicit shard count above
+            # the visible devices usually means a mis-set machine.
+            print(f"warning: --frame_shards {n_shards} exceeds the "
+                  f"{len(devices)} visible devices; using {len(devices)}")
+        n_shards = min(n_shards, len(devices))
+        devices, first_slot = devices[:n_shards], 0
+    else:
+        slots = fleet_slot_counts(len(devices))
+        n_shards, first_slot = sum(slots), sum(slots[:pid])
+        if config.frame_shards not in (0, n_shards):
+            # Every process renders its share of every batch; a grid that
+            # left some process out would strand it at the barriers.
+            raise ValueError(
+                f"multi-host video requires frame_shards == all devices "
+                f"({n_shards}), got {config.frame_shards}")
+    # This process's slots of the grid (all of them but in a fleet).
+    mesh = make_frame_mesh(len(devices), 1, devices=devices)
     # Frames per device per batch: small frames are batched until a batch
     # carries ~4 FHD frames' worth of pixels, capped at 16, floored at 4
     # (2 with several shards), and bounded by the video's length so a
     # short video is not mostly padding. --frames_per_dispatch pins it.
+    # From the config and the grid's size alone: a fleet's processes
+    # must agree on the batch.
     if config.frames_per_dispatch:
         frames_per_device = int(config.frames_per_dispatch)
     else:
@@ -488,12 +578,34 @@ def render_video_sharded(config: SceneConfig, devices=None) -> dict:
         frames_per_device = max(
             1, min(frames_per_device, -(-config.n_frames // n_shards)))
     batch = n_shards * frames_per_device
+    # The batch positions this process renders, in order: position p
+    # belongs to grid slot p % n_shards, and own[j] runs on this
+    # process's device j % len(devices), as the renderer deals them.
+    own = [p for p in range(batch)
+           if first_slot <= p % n_shards < first_slot + len(devices)]
 
     output_path = config.output
     os.makedirs(os.path.dirname(output_path) or ".", exist_ok=True)
     temp_dir, progress_file = video_temp_paths(output_path)
     params = video_resume_params(config, sharded=True)
-    completed, _ = load_video_progress(config, temp_dir, progress_file, params)
+    completed = set()
+    if pid == 0:
+        completed, _ = load_video_progress(config, temp_dir, progress_file,
+                                           params)
+    if n_proc > 1:
+        # Process 0 arbitrates resume against wipe and broadcasts the
+        # surviving frames as a mask: were every process to read the file
+        # itself, a stale read on a shared filesystem could give them
+        # different pending sets and so different barrier sequences. The
+        # broadcast also holds the others until process 0 has wiped.
+        mask = np.zeros(config.n_frames, bool)
+        # Junk entries (negative, fractional, out of range) are ignored,
+        # as the pending computation below ignores them.
+        mask[[int(f) for f in completed
+              if isinstance(f, (int, float)) and not isinstance(f, bool)
+              and float(f).is_integer() and 0 <= f < config.n_frames]] = True
+        completed = {int(f) for f in np.nonzero(fleet_broadcast_mask(mask))[0]}
+        os.makedirs(temp_dir, exist_ok=True)
 
     skybox_np, _, _ = load_or_generate_skybox(
         config.texture, 2048, 1024, config.n_stars, seed=config.skybox_seed)
@@ -511,28 +623,31 @@ def render_video_sharded(config: SceneConfig, devices=None) -> dict:
             n_r, n_phi, config.disk_inner_radius, config.disk_outer_radius,
             seed=config.seed, device=mesh.devices[0][0],
         )
-        print(f"Packing lifecycle params for {config.n_frames} frames...")
+        say(f"Packing lifecycle params for {config.n_frames} frames...")
         t0 = time.time()
         all_fil, all_hs, all_rt = pack_frame_params(
             dynamic, config.n_frames, config.disk_rotation_speed
         )
-        print(f"  packed in {time.time() - t0:.1f}s")
+        say(f"  packed in {time.time() - t0:.1f}s")
     renderer_fn = _video_renderer(mesh, config, dynamic)
     stages = frame_stages(config)
 
     writer = AsyncPNGWriter(max_workers=4, max_pending=8)
     # One thread feeds the H.264 assembler, so frames reach it in the
-    # order they were queued: index order.
+    # order they were queued: index order. In a fleet no process holds
+    # every frame: the inline encoder is left out and process 0 runs the
+    # post-pass over the shared frame directory instead.
+    inline = n_proc == 1
     h264_pool = ThreadPoolExecutor(max_workers=1)
-    assembler = IncrementalH264Assembler(
+    assembler = (IncrementalH264Assembler(
         output_path, config.n_frames, config.fps, temp_dir,
-        crf=config.video_crf,
-    )
+        crf=config.video_crf) if inline else None)
     fetcher = _FrameFetcher()
     total_t0 = time.time()
     pending = [f for f in range(config.n_frames) if f not in completed]
     n_batches = (len(pending) + batch - 1) // batch
     waited = [0.0]  # seconds the main thread was blocked on the writers
+    written = [0]  # frames this process handed to its writers
     stage_ms = {name: [] for name in
                 (*(() if is_v2 else ("background",)), *stages, "fetch")}
 
@@ -543,17 +658,20 @@ def render_video_sharded(config: SceneConfig, devices=None) -> dict:
 
     class Batch:
         """One enqueued batch: its real frames, the stamps of its stages
-        and the copies, PNG writes and H.264 jobs still under way."""
+        and the copies, PNG writes and H.264 jobs still under way. The
+        renderer numbers this process's frames 0, 1, ...: frame j of it
+        is position ``own[j]`` of the batch."""
 
         def __init__(self, b, chunk):
             self.b, self.chunk = b, chunk
             self.stamps, self.copies, self.jobs = {}, [], []
 
-        def on_stage(self, stage, pos, device):
-            key = pos if pos is not None else ("background", device)
+        def on_stage(self, stage, j, device):
+            key = own[j] if j is not None else ("background", device)
             self.stamps.setdefault(key, []).append(_stamp(device))
 
-        def on_frame(self, pos, frame):
+        def on_frame(self, j, frame):
+            pos = own[j]
             if pos >= len(self.chunk):
                 return  # a padding repeat of the last frame
             f = self.chunk[pos]
@@ -565,7 +683,9 @@ def render_video_sharded(config: SceneConfig, devices=None) -> dict:
                 host, os.path.join(temp_dir, f"frame_{f:04d}.png"),
                 ready=copied and copied[1]))
             waited[0] += time.perf_counter() - t0
-            self.jobs.append(h264_pool.submit(encode_h264, f, host, copied))
+            written[0] += 1
+            if inline:
+                self.jobs.append(h264_pool.submit(encode_h264, f, host, copied))
 
     batch_enqueued_t = []
 
@@ -575,13 +695,19 @@ def render_video_sharded(config: SceneConfig, devices=None) -> dict:
         # A frame's PNG is on disk before progress.json records it: a
         # crash in between would lose the frame for good under resume.
         # Only this batch's frames are waited for: the next batch's are
-        # still being written, and that is the overlap.
+        # still being written, and that is the overlap. In a fleet the
+        # barrier extends this to every process's PNGs (each reaches it
+        # only after its own are written), and the whole chunk counts:
+        # its other frames are the other processes'.
         for job in done.jobs:
             job.result()
         waited[0] += time.perf_counter() - t0
+        fleet_barrier()
         completed.update(done.chunk)
-        write_json_atomic(
-            progress_file, {"params": params, "completed": sorted(completed)})
+        if pid == 0:
+            write_json_atomic(
+                progress_file,
+                {"params": params, "completed": sorted(completed)})
         for pos, stamps in done.stamps.items():
             if isinstance(pos, tuple):
                 # One pass made the background of every frame of a mesh
@@ -599,14 +725,19 @@ def render_video_sharded(config: SceneConfig, devices=None) -> dict:
             # counts the frames of earlier runs.
             run_done = min((done.b + 1) * batch, len(pending))
             rate = run_done / max(time.time() - total_t0, 1e-9)
-            print(f"batch {done.b + 1}/{n_batches} "
-                  f"done {len(completed)}/{config.n_frames} "
-                  f"({rate:.2f} frames/s)")
+            say(f"batch {done.b + 1}/{n_batches} "
+                f"done {len(completed)}/{config.n_frames} "
+                f"({rate:.2f} frames/s)")
 
     # The with-block covers everything through finalize: an exception
     # anywhere in it discards the partial video via __exit__, after the
-    # inner finally has stopped the threads that feed it.
-    with assembler:
+    # inner finally has stopped the threads that feed it; in a fleet it
+    # then ends this process hard (entered first, so it covers the rest).
+    with contextlib.ExitStack() as stack:
+        if n_proc > 1:
+            stack.enter_context(_abort_fleet_on_error(pid))
+        if inline:
+            stack.enter_context(assembler)
         try:
             # One-batch lookahead: batch b + 1 is enqueued before batch b
             # is recorded, so b's fetch, PNG and H.264 work overlaps
@@ -618,8 +749,8 @@ def render_video_sharded(config: SceneConfig, devices=None) -> dict:
                 idx = chunk + [chunk[-1]] * (batch - len(chunk))
                 current = Batch(b, chunk)
                 render_video_frames_sharded(
-                    config, mesh, idx, skybox, dynamic, all_fil, all_hs,
-                    all_rt, renderer_fn, defer_fetch=True,
+                    config, mesh, [idx[p] for p in own], skybox, dynamic,
+                    all_fil, all_hs, all_rt, renderer_fn, defer_fetch=True,
                     on_frame=current.on_frame, on_stage=current.on_stage)
                 batch_enqueued_t.append(time.time())
                 if inflight is not None:
@@ -633,13 +764,23 @@ def render_video_sharded(config: SceneConfig, devices=None) -> dict:
             finally:
                 writer.close()
         end_t = time.time()
-        print(f"All frames rendered in {(end_t - total_t0) / 60:.1f} min")
+        say(f"All frames rendered in {(end_t - total_t0) / 60:.1f} min")
         steady_fps = steady_rate(len(pending), batch,
                                  end_t - batch_enqueued_t[0] if pending else 0.0)
-        finished_by = _finish_video(assembler, temp_dir, config)
+        finished_by = None
+        if inline:
+            finished_by = _finish_video(assembler, temp_dir, config)
+        elif pid == 0:
+            finished_by = _assemble_video(temp_dir, output_path,
+                                          config.n_frames, config.fps,
+                                          crf=config.video_crf)
+    # Every process stays until the video exists: nobody leaves the group
+    # while process 0 is still assembling.
+    fleet_barrier()
     wall_s = time.time() - total_t0
     return {
         "frames": len(pending),
+        "own_frames": written[0],
         "padded": n_batches * batch - len(pending),
         "wall_s": wall_s,
         "fps": len(pending) / max(wall_s, 1e-9),
@@ -648,7 +789,8 @@ def render_video_sharded(config: SceneConfig, devices=None) -> dict:
         "stage_ms": {
             **{name: _median_ms(v) for name, v in stage_ms.items()},
             "png": _median_ms([s * 1e3 for s in writer.encode_s]),
-            "h264": _median_ms([s * 1e3 for s in assembler.encode_s]),
+            "h264": _median_ms([s * 1e3 for s in assembler.encode_s]
+                               if inline else []),
         },
         "writer_wait_s": waited[0],
     }

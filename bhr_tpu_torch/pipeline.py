@@ -329,7 +329,14 @@ class Renderer:
     trace's escape radius for every frame (the orbit video passes
     ``scene_escape_radius(config)``, so that both video engines trace
     the same scene); by default each frame uses
-    ``escape_radius(r_max, cam_pos)``.
+    ``escape_radius(r_max, cam_pos)``. Without an override, a non-zero
+    ``r_escape_quantum`` rounds that radius up to a multiple of it
+    (``ceil(r / q) * q``), as the interactive session asks with 4.0. In
+    ``bhr_tpu`` the quantum bounds recompiles under zoom; here the escape
+    radius is a runtime argument of the kernel and no value costs a
+    rebuild. The quantum is kept because it decides what is rendered
+    (rays escape a little later), and the session's frames are held
+    against ``bhr_tpu``'s.
     """
 
     def __init__(
@@ -340,9 +347,12 @@ class Renderer:
         mip_levels: int = MIP_LEVELS,
         device=None,
         r_escape_override: Optional[float] = None,
+        r_escape_quantum: float = 0.0,
     ):
         self.config = config
-        self.r_escape_override = r_escape_override
+        self.r_escape_quantum = float(r_escape_quantum)
+        self.r_escape_override = (
+            None if r_escape_override is None else float(r_escape_override))
         self.device = torch_device(config.device) if device is None else torch.device(device)
         self.width, self.height = config.image_size
         self.skybox = torch.as_tensor(np.asarray(skybox, np.float32),
@@ -424,13 +434,29 @@ class Renderer:
         disk_img = disk_rgb.reshape(shape)
         return post_process(bg_img, disk_img, use_bloom, use_flare), bg_img, disk_img
 
+    def frame_escape_radius(self, cam_pos) -> float:
+        """The escape radius a frame from ``cam_pos`` is traced with: the
+        override, else ``escape_radius(r_max, cam_pos)`` rounded up to
+        the quantum (if any)."""
+        if self.r_escape_override is not None:
+            return self.r_escape_override
+        r_escape = escape_radius(self.config.r_max, cam_pos)
+        if self.r_escape_quantum > 0.0:
+            q = self.r_escape_quantum
+            r_escape = float(np.ceil(r_escape / q) * q)
+        return r_escape
+
     def _run_frame(self, cam_pos, fov, frame, skip_differentials, skip_bloom,
-                   use_flare):
-        use_diff = self.config.use_ray_differentials and not skip_differentials
+                   use_flare, force_differentials=False):
+        # force_differentials: the interactive 'd' key turns the
+        # differential + mip-LOD path on in a session launched with
+        # anti_alias="disabled"; inert for V2, which has no LOD path.
+        use_diff = (
+            self.config.use_ray_differentials
+            or (force_differentials and self.config.disk_model != "v2")
+        ) and not skip_differentials
         camera = self.camera(cam_pos, fov)
-        r_escape = (escape_radius(self.config.r_max, cam_pos)
-                    if self.r_escape_override is None
-                    else self.r_escape_override)
+        r_escape = self.frame_escape_radius(cam_pos)
         trace = self.trace(camera, r_escape, use_diff)
         bg, disk_rgb = self.shade(trace, camera, frame, use_diff)
         return self.post(bg, disk_rgb, not skip_bloom, use_flare)
@@ -448,16 +474,19 @@ class Renderer:
     def render_device(self, cam_pos, fov: float, frame: int = 0,
                       skip_differentials: bool = False,
                       skip_bloom: bool = False,
-                      lens_flare: Optional[bool] = None) -> torch.Tensor:
+                      lens_flare: Optional[bool] = None,
+                      force_differentials: bool = False) -> torch.Tensor:
         """Render a full frame, returned on device (H, W, 3)."""
         use_flare = self.config.lens_flare if lens_flare is None else lens_flare
         final, _, _ = self._run_frame(cam_pos, fov, frame, skip_differentials,
-                                      skip_bloom, use_flare)
+                                      skip_bloom, use_flare, force_differentials)
         return final
 
     def render(self, cam_pos, fov: float, frame: int = 0,
                skip_differentials: bool = False, skip_bloom: bool = False,
-               lens_flare: Optional[bool] = None) -> np.ndarray:
+               lens_flare: Optional[bool] = None,
+               force_differentials: bool = False) -> np.ndarray:
         """Render a full frame -> (H, W, 3) float32 numpy in [0, 1]."""
         return self.render_device(cam_pos, fov, frame, skip_differentials,
-                                  skip_bloom, lens_flare).cpu().numpy()
+                                  skip_bloom, lens_flare,
+                                  force_differentials).cpu().numpy()

@@ -112,10 +112,46 @@ exits non-zero without printing a result:
    against sequential within one uint8 step in every frame, a resume after frames 4-7 are removed (4
    launches, 8 of 8 PNGs byte-equal), a changed ``v2_samples`` with
    ``resume`` wipes and renders 8;
-8. a JSON line describing every instantiation at FHD (kernel, plain
+8. the interactive session (``interactive.py``) at full width, the FHD
+   default scene, with the counts set to 0 just before each part and read
+   just after, and no plain trace call allowed: (a) an
+   ``InteractiveSession`` with lookahead for 12 steps, then the keys ``d``,
+   ``b``, ``l``, ``6``, ``0``, ``+``, ``up`` with 3 steps after each: every
+   frame (1080, 1920, 3) uint8 and lit, ``ray_march_slim`` launches = the
+   steps with ``d`` off, ``ray_march_aa`` = the steps with it on, the first
+   frame shown after a key is the one rendered after it; (b) the fused
+   session's first frame against the staged one's (``fused=False``), both
+   without lookahead: at most one uint8 step apart, also for the solo view
+   of key ``6``; the render ms a frame of a fused session with and without
+   lookahead, in turns; (c) a
+   ``--disk_model v2`` session: ``ray_march_slim`` only, ``d`` inert
+   (``D:n/a``); (d) ``run_http_preview`` in a thread on a port the system
+   chose: ``/frame`` fetched over loopback and decoded with Pillow, the
+   frame's size, its mean absolute difference from a submitted frame
+   (under 8 of 255), ``/key?k=q`` ends the loop; the viewer's (JPEG) ms;
+9. the multi-process fleet (``parallel.mesh.initialize_multihost``,
+   ``render_video_sharded``'s fleet branches): two child processes, both
+   on ``cuda:0``, joined on a free loopback port, each with its output in
+   a file and a deadline past which it is killed and the run fails:
+   (a) the golden orbit in batches of 6 (the last batch 2 frames and 4
+   padding repeats): all 8 PNGs byte-equal to phase 7a's one-process run,
+   no other PNG, ``progress.json`` complete and written by process 0
+   alone, the video file assembled by process 0, each process's
+   ``ray_march_slim`` launches (their sum = frames + padding) and plain
+   trace calls (0); a second pass with ``resume`` renders nothing; the
+   same with the V2 disk against a one-process run made here; (b) the
+   CLI's guard: ``--interactive`` with ``--coordinator_address`` ends both
+   with exit code 2 and "sharded orbit video"; (c) a failure injected
+   into process 1's second batch ends it with exit code 1 and "aborting
+   the fleet", and process 0 ends non-zero; (d) the FHD default video, 24
+   frames, through ``cli.main`` in both processes: frames/s end to end and
+   steady beside phase 7d's one-process figures; where several cards are
+   visible, also one process per card (``CUDA_VISIBLE_DEVICES=k``) beside
+   one process over all cards;
+10. a JSON line describing every instantiation at FHD (kernel, plain
    version, FP32-operation bound and issue bound times; ``launches`` sums
-   the paths of phases 5, 6c, 6d and 7d), then the result line ``{"ok": true,
-   "device": {...}}`` as the last line.
+   the paths of phases 5, 6c, 6d, 7d, 8 and 9), then the result line
+   ``{"ok": true, "device": {...}}`` as the last line.
 
 Imports torch, numpy and bhr_tpu_torch only.
 """
@@ -127,10 +163,14 @@ import io
 import json
 import os
 import re
+import socket
 import statistics
 import subprocess
 import sys
+import threading
 import time
+import urllib.error
+import urllib.request
 
 import numpy as np
 import torch
@@ -971,8 +1011,9 @@ def expect_video_launches(counts, name, n, plain_calls, what):
           f"times, expected {name} {n} times and nothing else")
 
 
-def video_phase(launches, reset_counts) -> dict:
-    """Phase 7; -> {kernel: launches of the full-width video paths}."""
+def video_phase(launches, reset_counts) -> tuple:
+    """Phase 7; -> ({kernel: launches of the full-width video paths},
+    {tag: the statistics of each full-width video})."""
     import dataclasses
 
     import bhr_tpu_torch.cli as cli
@@ -1176,7 +1217,7 @@ def video_phase(launches, reset_counts) -> dict:
               "a changed v2_samples did not render the video anew")
 
         # 7d. full width, through the CLI
-        path_launches = {}
+        path_launches, fhd_stats = {}, {}
         n_cards = torch.cuda.device_count()
         for tag, n_frames, flags, expected in FHD_VIDEOS:
             out = os.path.join("output", "torch_video", f"fhd_{tag}.mp4")
@@ -1210,6 +1251,7 @@ def video_phase(launches, reset_counts) -> dict:
             expect_video_launches(launched, expected, n_frames + stats["padded"],
                                   plain_calls, f"FHD video {tag}")
             check(stats["frames"] == n_frames, f"FHD video {tag}: {stats}")
+            fhd_stats[tag] = stats
             cfg = cli.config_from_args(cli.build_parser().parse_args(argv))
             paths, progress_file = frame_files(cfg)
             with open(progress_file) as f:
@@ -1256,9 +1298,497 @@ def video_phase(launches, reset_counts) -> dict:
                     say(f"[video fhd {tag}] on 1 card: {one['fps']:.3f} frames/s end "
                         f"to end, {one['steady_fps']:.3f} steady (all {n_cards}: "
                         f"{stats['fps']:.3f}, {steady})")
-        return path_launches
+                    fhd_stats["default on 1 card"] = one
+        return path_launches, fhd_stats
     finally:
         counting.close()
+
+
+def interactive_phase(launches, reset_counts, smi) -> dict:
+    """Phase 8; -> {kernel: launches of the full-width sessions}."""
+    import bhr_tpu_torch.cli as cli
+    import bhr_tpu_torch.interactive as interactive
+    from bhr_tpu_torch.interactive import InteractiveSession
+    from bhr_tpu_torch.utils.io import quantize_frame
+
+    def parse(flags):
+        return cli.config_from_args(cli.build_parser().parse_args(
+            ["--interactive", "-r", "fhd", *flags]))
+
+    cfg = parse([])
+    path = {"ray_march_slim": 0, "ray_march_aa": 0}
+    counting = contextlib.ExitStack()
+    plain_calls = counting.enter_context(counted_plain_traces())
+
+    def reset():
+        reset_counts()
+        plain_calls[0] = 0
+
+    def expect(what, slim, aa):
+        launched = dict(launches)
+        others = {k: v for k, v in launched.items()
+                  if k not in ("ray_march_slim", "ray_march_aa") and v}
+        check(launched["ray_march_slim"] == slim and launched["ray_march_aa"] == aa
+              and not others and not plain_calls[0],
+              f"{what} launched {launched} and ran the plain trace "
+              f"{plain_calls[0]} times, expected slim {slim}, aa {aa}")
+        path["ray_march_slim"] += slim
+        path["ray_march_aa"] += aa
+
+    def lit(frame, what):
+        check(isinstance(frame, np.ndarray) and frame.shape == (1080, 1920, 3)
+              and frame.dtype == np.uint8 and frame.max() > 64,
+              f"{what}: frame {getattr(frame, 'shape', None)} "
+              f"{getattr(frame, 'dtype', None)} is the wrong shape or black")
+
+    def apart(a, b):
+        return np.abs(a.astype(np.int16) - quantize_frame(b).astype(np.int16))
+
+    try:
+        # 8a. the key script, with lookahead
+        reset()
+        sess = InteractiveSession(cfg)
+        check(sess._fused is not None and sess.lookahead, "no fused session")
+        made = []
+        real = sess._fused.render_async
+        sess._fused.render_async = lambda *a, **kw: made.append(
+            real(*a, **kw)) or made[-1]
+        for i in range(12):
+            lit(sess.step(0.05), f"interactive step {i}")
+        steps = {False: 12, True: 0}  # by the state of the 'd' toggle
+        for key in ("d", "b", "l", "6", "0", "+", "up"):
+            sess.handle_key(key)
+            for i in range(3):
+                frame = sess.step(0.05)
+                lit(frame, f"interactive frame {i} after key {key}")
+                if i == 0:
+                    check(np.array_equal(frame, made[-1].cpu().numpy()),
+                          f"the first frame shown after key {key} was rendered "
+                          f"before it")
+                steps[sess.diff] += 1
+        expect("the interactive key script", steps[False], steps[True])
+        say(f"[interactive keys] {sess.frames} steps, keys d b l 6 0 + up: "
+            f"ray_march_slim launches {steps[False]} (d off), ray_march_aa "
+            f"{steps[True]} (d on), plain trace calls {plain_calls[0]}; every "
+            f"first frame after a key was rendered after it; "
+            f"{len(sess._fused._renderers)} renderer closures kept; HUD: "
+            + sess.hud_text().replace("\n", " | "))
+        say(f"[interactive keys] {sess.summary()}")
+        del made[:], sess
+
+        # 8b. fused against staged, lookahead off; the solo view of key 6
+        ms = {True: [], False: []}  # by lookahead
+        for key in (None, "6"):
+            reset()
+            sessions = [InteractiveSession(cfg, lookahead=False),
+                        InteractiveSession(cfg, lookahead=False, fused=False)]
+            check(sessions[0]._fused is not None and sessions[1]._fused is None,
+                  "fused / staged sessions")
+            frames = []
+            for s_ in sessions:
+                if key:
+                    s_.handle_key(key)
+                frames.append(s_.step(0.05))
+            lit(frames[0], f"fused first frame (key {key})")
+            d = apart(frames[0], frames[1])
+            say(f"[interactive fused-vs-staged{' solo ' + key if key else ''}] "
+                f"first frame at 1920x1080, lookahead off: {(d != 0).mean():.4%} "
+                f"of values differ, largest step {d.max()}")
+            check(d.max() <= 1, f"fused vs staged (key {key}): {d.max()} uint8 steps")
+            n = 2
+            if key is None:
+                # With and without lookahead, turn about on one fused
+                # session: 5 rounds of 6 steps each way; the first round
+                # warms up, and so does the first step of every turn
+                # (after the switch it has no pending frame to show).
+                del sessions[1]
+                s_ = sessions[0]
+                for round_ in range(5):
+                    for lookahead in (True, False):
+                        s_.lookahead, s_._pending = lookahead, None
+                        for i in range(6):
+                            lit(s_.step(0.05), "fused step")
+                            if round_ and i:
+                                ms[lookahead].append(s_.last_render_ms)
+                            n += 1
+            expect(f"fused and staged sessions (key {key})", n, 0)
+            del sessions, frames
+        say(f"[interactive fhd] {smi}: median render ms a frame, fused session: "
+            f"{statistics.median(ms[True]):.3f} with lookahead, "
+            f"{statistics.median(ms[False]):.3f} without (20 frames each, one "
+            f"session in turns of 6; host clock around step())")
+
+        # 8c. the V2 session: the slim kernel only, 'd' inert
+        v2_ms = {}
+        for lookahead in (True, False):
+            reset()
+            sess = InteractiveSession(parse(["--disk_model", "v2"]),
+                                      lookahead=lookahead)
+            check(sess._fused is not None and sess.dynamic is None, "V2 session")
+            ms = []
+            for i in range(8):
+                lit(sess.step(0.05), f"V2 interactive step {i}")
+                ms.append(sess.last_render_ms)
+            sess.handle_key("d")
+            for i in range(3):
+                lit(sess.step(0.05), f"V2 interactive step {i} after d")
+            check("D:n/a" in sess.hud_text(), f"V2 HUD: {sess.hud_text()}")
+            expect("the V2 interactive session", 11, 0)
+            v2_ms[lookahead] = statistics.median(ms[2:])
+        say(f"[interactive v2] {smi}: 2 x 11 steps, ray_march_slim only, d inert "
+            f"(HUD says D:n/a); median render ms a frame {v2_ms[True]:.3f} with "
+            f"lookahead, {v2_ms[False]:.3f} without; {sess.summary()}")
+        del sess
+
+        # 8d. the HTTP preview over loopback
+        from PIL import Image
+
+        reset()
+        submitted, started = [], threading.Event()
+        box = {}
+
+        def on_start(server):
+            box["server"] = server
+            submit = server.submit
+            server.submit = lambda img: (submitted.append(np.array(img)),
+                                         submit(img))[1]
+            started.set()
+
+        tee = _Tee()
+
+        def serve():
+            try:
+                with contextlib.redirect_stdout(tee):
+                    interactive.run_http_preview(cfg, port=0, max_frames=64,
+                                                 on_start=on_start)
+            except Exception as exc:  # reported by the main thread
+                box["error"] = exc
+
+        thread = threading.Thread(target=serve, daemon=True)
+        thread.start()
+        check(started.wait(60), "the preview server did not start")
+        base = f"http://127.0.0.1:{box['server'].port}"
+        jpeg, deadline = None, time.time() + 120
+        while jpeg is None and time.time() < deadline and thread.is_alive():
+            try:
+                jpeg = urllib.request.urlopen(f"{base}/frame", timeout=10).read()
+            except urllib.error.HTTPError as exc:
+                check(exc.code == 503, f"/frame answered {exc.code}")
+                time.sleep(0.05)  # no frame yet
+        check(jpeg is not None, f"no /frame within the deadline: {box.get('error')}")
+        img = np.asarray(Image.open(io.BytesIO(jpeg)).convert("RGB"))
+        while len(submitted) < 8 and time.time() < deadline and thread.is_alive():
+            time.sleep(0.05)  # a few frames, for the viewer's time
+        urllib.request.urlopen(f"{base}/key?k=q", timeout=10).read()
+        thread.join(60)
+        check(not thread.is_alive() and "error" not in box,
+              f"the preview loop did not end on q: {box.get('error')}")
+        check(img.shape == (1080, 1920, 3), f"/frame decoded to {img.shape}")
+        mad = min(float(np.abs(img.astype(np.int16) - f.astype(np.int16)).mean())
+                  for f in submitted)
+        lines = [ln for ln in tee.getvalue().splitlines()
+                 if ln.startswith("interactive: ")]
+        check(len(lines) == 1, "the preview loop printed no summary")
+        say(f"[interactive http] {smi}: /frame over loopback: {len(jpeg)} bytes, "
+            f"decoded {img.shape}, mean absolute difference from the nearest of "
+            f"{len(submitted)} submitted frames {mad:.3f} of 255; /key?k=q ended "
+            f"the loop; {lines[0]} (viewer = the JPEG encode)")
+        check(mad < 8.0, f"/frame is {mad} away from every submitted frame")
+        check(8 <= len(submitted) < 64, f"{len(submitted)} frames: q did not end it")
+        for frame in submitted:
+            lit(frame, "a frame submitted to the preview server")
+        expect("the HTTP preview session", len(submitted), 0)
+        return path
+    finally:
+        counting.close()
+
+
+# One process of a fleet: ``worker.py MODE PID N_PROC PORT OUTDIR``. It
+# joins the group (the CLI modes let ``cli.main`` do that), counts its
+# kernel launches, plain trace calls and progress.json writes, and prints
+# them on "FLEET ..." lines.
+FLEET_WORKER = r"""
+import dataclasses, datetime, json, os, sys
+mode, pid, n_proc, port, outdir = (sys.argv[1], int(sys.argv[2]), int(sys.argv[3]),
+                                   sys.argv[4], sys.argv[5])
+import torch
+import bhr_tpu_torch.parallel.video as V
+from bhr_tpu_torch.ops import geodesic_cuda
+from bhr_tpu_torch.ops.geodesic_cuda import trace_geodesics_cuda
+launches = trace_geodesics_cuda.launches
+counts = {"plain": 0, "progress_writes": 0}
+real_trace, real_write = geodesic_cuda.trace_geodesics, V.write_json_atomic
+def counted_trace(*a, **kw):
+    counts["plain"] += 1
+    return real_trace(*a, **kw)
+def counted_write(*a, **kw):
+    counts["progress_writes"] += 1
+    return real_write(*a, **kw)
+geodesic_cuda.trace_geodesics, V.write_json_atomic = counted_trace, counted_write
+def report(tag, stats):
+    print("FLEET " + json.dumps({"tag": tag, "pid": pid, "launches": dict(launches),
+                                 **counts, "stats": stats}), flush=True)
+    launches.update(dict.fromkeys(launches, 0))
+    counts.update(plain=0, progress_writes=0)
+address = "127.0.0.1:" + port
+if mode.startswith("cli:"):
+    import bhr_tpu_torch.cli as cli
+    rc = cli.main(json.loads(mode[4:]) + [
+        "--coordinator_address", address, "--num_processes", str(n_proc),
+        "--process_id", str(pid)])
+    report("cli", None)
+    sys.exit(rc)
+from bhr_tpu_torch.parallel.mesh import initialize_multihost, process_index
+n = initialize_multihost(address, n_proc, pid,
+                         timeout=datetime.timedelta(seconds=90))
+assert n == n_proc and process_index() == pid, (n, process_index())
+from bhr_tpu_torch.config import SceneConfig
+golden = json.loads(os.environ["FLEET_GOLDEN_VIDEO"])
+golden["pov"] = tuple(golden["pov"])
+def cfg(name, **changes):
+    return SceneConfig(device="cuda", output=os.path.join(outdir, name + ".mp4"),
+                       **{**golden, "frame_shards": 0, **changes})
+if mode == "golden":
+    for name, extra in (("golden", {}), ("v2", json.loads(os.environ["FLEET_V2"]))):
+        c = cfg(name, frames_per_dispatch=3, **extra)
+        report(name, V.render_video_sharded(c))
+        report(name + " resume",
+               V.render_video_sharded(dataclasses.replace(c, resume=True)))
+elif mode == "abort":
+    real_batch, batches = V.render_video_frames_sharded, [0]
+    def inject(*a, **kw):
+        batches[0] += 1
+        if pid == 1 and batches[0] == 2:
+            raise RuntimeError("injected-batch-failure")
+        return real_batch(*a, **kw)
+    V.render_video_frames_sharded = inject
+    V.render_video_sharded(cfg("abort", n_frames=16, frames_per_dispatch=1))
+    print("UNREACHABLE", pid, flush=True)
+"""
+
+
+def first_card() -> str:
+    """The first visible card, as a ``CUDA_VISIBLE_DEVICES`` value."""
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES", "").split(",")[0].strip()
+    return visible or "0"
+
+
+def run_fleet(mode, n_proc, outdir, deadline_s, envs=None):
+    """Start ``n_proc`` fleet workers in ``mode`` on a free loopback port
+    -> [(exit code, output)] in rank order. ``envs`` gives each worker's
+    own environment variables; by default every worker sees the first
+    card only, so all share it. Output goes to files; a worker still
+    running at the common deadline is killed, with all the others, and
+    the run fails."""
+    if envs is None:
+        envs = [{"CUDA_VISIBLE_DEVICES": first_card()}] * n_proc
+    os.makedirs(outdir, exist_ok=True)
+    script = os.path.join(outdir, "worker.py")
+    with open(script, "w") as f:
+        f.write(FLEET_WORKER)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = str(s.getsockname()[1])
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get(
+        "PYTHONPATH", ""), FLEET_GOLDEN_VIDEO=json.dumps(GOLDEN_VIDEO),
+        FLEET_V2=json.dumps(V2_SCENES["v2sci"]))
+    logs = [os.path.join(outdir, f"{mode.split(':')[0]}_{pid}.log")
+            for pid in range(n_proc)]
+    procs = []
+    for pid in range(n_proc):
+        with open(logs[pid], "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, script, mode, str(pid), str(n_proc), port, outdir],
+                env=dict(env, **envs[pid]), stdout=log,
+                stderr=subprocess.STDOUT))
+    deadline = time.time() + deadline_s
+    try:
+        for p in procs:
+            p.wait(timeout=max(1, deadline - time.time()))
+    except subprocess.TimeoutExpired:
+        raise RuntimeError(
+            f"FAIL: a fleet worker ({mode.split(':')[0]}) outlived its "
+            f"{deadline_s} s deadline")
+    finally:
+        for p in procs:  # nothing this script started is left running
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    outs = []
+    for log in logs:
+        with open(log) as f:
+            outs.append(f.read())
+    return [(p.returncode, out) for p, out in zip(procs, outs)]
+
+
+def fleet_reports(results, what):
+    """The workers' "FLEET" lines -> {tag: [report of process 0, 1, ...]};
+    every worker must have exited with code 0."""
+    reports = {}
+    for pid, (rc, out) in enumerate(results):
+        check(rc == 0, f"{what}: process {pid} exited with {rc}:\n{out[-3000:]}")
+        for line in out.splitlines():
+            if line.startswith("FLEET "):
+                r = json.loads(line[len("FLEET "):])
+                reports.setdefault(r["tag"], []).append(r)
+    return reports
+
+
+def fleet_phase(fhd_video_stats, smi) -> dict:
+    """Phase 9; -> {kernel: launches of the full-width fleet video, summed
+    over its processes}."""
+    from bhr_tpu_torch.config import SceneConfig
+    from bhr_tpu_torch.modes import video_temp_paths
+    from bhr_tpu_torch.parallel.video import render_video_sharded
+
+    outdir = os.path.join("output", "torch_fleet")
+
+    def png_bytes(output, n):
+        temp_dir, progress_file = video_temp_paths(output)
+        names = sorted(f for f in os.listdir(temp_dir) if f.endswith(".png"))
+        check(names == [f"frame_{f:04d}.png" for f in range(n)],
+              f"{output}: PNG files {names}")
+        out = []
+        for name in names:
+            with open(os.path.join(temp_dir, name), "rb") as f:
+                out.append(f.read())
+        with open(progress_file) as f:
+            return out, json.load(f)
+
+    # 9a. the golden orbit, texture model and V2, two processes on cuda:0
+    t0 = time.perf_counter()
+    reports = fleet_reports(run_fleet("golden", 2, outdir, 300), "fleet golden")
+    took = time.perf_counter() - t0
+    v2_ref = SceneConfig(device="cuda", output=os.path.join(outdir, "v2_one.mp4"),
+                         **{**GOLDEN_VIDEO, **V2_SCENES["v2sci"]})
+    render_video_sharded(v2_ref)
+    refs = {"golden": os.path.join("output", "torch_video", "golden.mp4"),
+            "v2": v2_ref.output}
+    for name, ref in refs.items():
+        ours, progress = png_bytes(os.path.join(outdir, f"{name}.mp4"), 8)
+        theirs, _ = png_bytes(ref, 8)
+        run, again = reports[name], reports[name + " resume"]
+        slim = [r["launches"]["ray_march_slim"] for r in run]
+        stats = [r["stats"] for r in run]
+        say(f"[fleet {name}] 2 processes on cuda:0, 8 frames in batches of 6: "
+            f"{sum(a == b for a, b in zip(ours, theirs))} of 8 PNGs byte-equal to "
+            f"the one-process run's; ray_march_slim launches {slim} (frames "
+            f"written {[s['own_frames'] for s in stats]}, padding "
+            f"{stats[0]['padded']}), plain trace calls {[r['plain'] for r in run]}; "
+            f"progress.json written {[r['progress_writes'] for r in run]} times; "
+            f"assembler {[s['assembler'] for s in stats]}; resume pass: launches "
+            f"{[r['launches']['ray_march_slim'] for r in again]}, frames "
+            f"{[r['stats']['frames'] for r in again]}")
+        check(ours == theirs, f"fleet {name}: PNGs differ from one process's")
+        check(progress["completed"] == list(range(8)), f"fleet {name}: {progress}")
+        check(len(run) == 2 and sum(slim) == 8 + stats[0]["padded"] == 12
+              and all(slim), f"fleet {name}: launches {slim}")
+        check(sum(s["own_frames"] for s in stats) == 8, f"fleet {name}: {stats}")
+        for r in run + again:
+            others = {k: v for k, v in r["launches"].items()
+                      if k != "ray_march_slim" and v}
+            check(not others and not r["plain"], f"fleet {name}: {r}")
+        check([r["progress_writes"] for r in run] == [2, 0],
+              f"fleet {name}: progress.json writers")
+        check(stats[0]["assembler"] in ("native", "ffmpeg", "mjpeg")
+              and stats[1]["assembler"] is None, f"fleet {name}: assemblers")
+        video = os.path.join(outdir, f"{name}.mp4")
+        if stats[0]["assembler"] == "mjpeg":
+            video = video.replace(".mp4", ".avi")
+        check(os.path.getsize(video) > 0, f"fleet {name}: no video file")
+        check(all(r["launches"]["ray_march_slim"] == 0 and r["stats"]["frames"] == 0
+                  for r in again), f"fleet {name}: the resume pass rendered")
+    say(f"[fleet golden] both workers (2 videos, 2 resume passes) took {took:.1f} s")
+
+    # 9b. the CLI's guard
+    results = run_fleet("cli:" + json.dumps(["--interactive", "-r", "sd", "-o",
+                                             os.path.join(outdir, "x.png")]),
+                        2, outdir, 180)
+    say(f"[fleet guard] --interactive --coordinator_address: exit codes "
+        f"{[rc for rc, _ in results]}")
+    for pid, (rc, out) in enumerate(results):
+        check(rc == 2 and "sharded orbit video" in out,
+              f"fleet guard: process {pid} exited with {rc}:\n{out[-2000:]}")
+    check("multi-host: 2 processes, 2 devices total" in results[0][1],
+          "fleet guard: process 0 did not announce the fleet")
+
+    # 9c. the abort
+    t0 = time.perf_counter()
+    results = run_fleet("abort", 2, outdir, 240)
+    say(f"[fleet abort] a failure in process 1's second batch: exit codes "
+        f"{[rc for rc, _ in results]}, both gone after "
+        f"{time.perf_counter() - t0:.1f} s")
+    check(results[1][0] == 1 and "injected-batch-failure" in results[1][1]
+          and "[process 1] fatal error, aborting the fleet:" in results[1][1],
+          f"fleet abort: process 1:\n{results[1][1][-2000:]}")
+    check(results[0][0] != 0, f"fleet abort: process 0:\n{results[0][1][-2000:]}")
+    check(all("UNREACHABLE" not in out for _, out in results),
+          "fleet abort: a process went on past the failure")
+
+    # 9d. the FHD default video through the CLI in every process
+    def fhd_fleet(tag, n_proc, envs):
+        out = os.path.join(outdir, f"fhd_{tag}.mp4")
+        argv = ["--video", "--orbit", "-r", "fhd", "--n_frames", "24", "--fps", "24",
+                "-o", out]
+        results = run_fleet("cli:" + json.dumps(argv), n_proc, outdir, 420, envs)
+        reports = fleet_reports(results, f"fleet fhd {tag}")["cli"]
+        lines = [ln for ln in results[0][1].splitlines()
+                 if ln.startswith("Video stats: ")]
+        check(len(lines) == 1, f"fleet fhd {tag}: no stats line")
+        stats = json.loads(lines[0][len("Video stats: "):])
+        slim = [r["launches"]["ray_march_slim"] for r in reports]
+        frames, progress = png_bytes(out, 24)
+        check(progress["completed"] == list(range(24)), f"fleet fhd {tag}: progress")
+        check(stats["frames"] == 24 and sum(slim) == 24 + stats["padded"]
+              and not any(r["plain"] for r in reports),
+              f"fleet fhd {tag}: launches {slim}, {stats}")
+        for r in reports:
+            others = {k: v for k, v in r["launches"].items()
+                      if k != "ray_march_slim" and v}
+            check(not others, f"fleet fhd {tag}: {r['launches']}")
+        steady = ("n/a (one batch)" if stats["steady_fps"] is None
+                  else f"{stats['steady_fps']:.3f}")
+        say(f"[fleet fhd {tag}] {smi}: {' '.join(argv[:-2])} in {n_proc} processes: "
+            f"24 frames (+{stats['padded']} padding) in {stats['wall_s']:.2f} s, "
+            f"{stats['fps']:.3f} frames/s end to end, {steady} steady; process "
+            f"0's per-frame medians ms: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in stats["stage_ms"].items()
+                        if v is not None)
+            + f"; ray_march_slim launches {slim}, plain trace calls "
+            f"{[r['plain'] for r in reports]}; assembler {stats['assembler']}")
+        # Phase 7d's one-process frames of the same video.
+        theirs, _ = png_bytes(os.path.join("output", "torch_video",
+                                           "fhd_default.mp4"), 24)
+        say(f"[fleet fhd {tag}] {sum(a == b for a, b in zip(frames, theirs))} of "
+            f"24 PNGs byte-equal to the one-process run's of phase 7d")
+        check(frames == theirs, f"fleet fhd {tag}: PNGs differ from one process's")
+        return stats, sum(slim)
+
+    one = fhd_video_stats["default"]
+    n_cards = torch.cuda.device_count()
+    _, n_launched = fhd_fleet("2 on cuda:0", 2, None)
+
+    def rates(stats):
+        steady = ("n/a (one batch)" if stats["steady_fps"] is None
+                  else f"{stats['steady_fps']:.3f}")
+        return f"{stats['fps']:.3f} frames/s end to end, {steady} steady"
+
+    one_card = fhd_video_stats.get("default on 1 card", one)
+    say(f"[fleet fhd] one process on one card in this call (phase 7d): "
+        f"{rates(one_card)}")
+    path = {"ray_march_slim": n_launched}
+    if n_cards > 1:
+        # Optimisation B's measurement: a process per card beside one
+        # process (one host thread) over all cards.
+        visible = (os.environ.get("CUDA_VISIBLE_DEVICES")
+                   or ",".join(map(str, range(n_cards)))).split(",")
+        per_card, n = fhd_fleet(f"{n_cards} processes, a card each", n_cards,
+                                [{"CUDA_VISIBLE_DEVICES": k} for k in visible])
+        path["ray_march_slim"] += n
+        say(f"[fleet fhd] a process per card: {rates(per_card)}; one process "
+            f"over all {n_cards} cards (phase 7d): {rates(one)}; one process on "
+            f"one card: {rates(one_card)}")
+    return path
 
 
 def main() -> int:
@@ -1582,10 +2112,19 @@ def main() -> int:
     path_launches["ray_march_slim"] += v2_bands
 
     # 7. the orbit video
-    for name, n in video_phase(launches, reset_counts).items():
+    video_launches, fhd_video_stats = video_phase(launches, reset_counts)
+    for name, n in video_launches.items():
         path_launches[name] += n
 
-    # 8. results
+    # 8. the interactive session
+    for name, n in interactive_phase(launches, reset_counts, smi).items():
+        path_launches[name] += n
+
+    # 9. the multi-process fleet
+    for name, n in fleet_phase(fhd_video_stats, smi).items():
+        path_launches[name] += n
+
+    # 10. results
     say(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

@@ -45,6 +45,11 @@ def test_port_imports_no_jax():
         "import bhr_tpu_torch, bhr_tpu_torch.cli, bhr_tpu_torch.modes\n"
         "import bhr_tpu_torch.interop, bhr_tpu_torch.ops.geodesic_cuda\n"
         "import bhr_tpu_torch.parallel.video, bhr_tpu_torch.native\n"
+        "import bhr_tpu_torch.interactive, bhr_tpu_torch.utils.preview_server\n"
+        "from bhr_tpu_torch.parallel.mesh import initialize_multihost\n"
+        "from bhr_tpu_torch.models.dynamic_disk import solo_comp\n"
+        "assert initialize_multihost(None) == 1\n"
+        "assert 'matplotlib' not in sys.modules and 'PIL' not in sys.modules\n"
         "import bhr_tpu_torch.models.disk_v2 as v2, importlib, pkgutil\n"
         "for m in pkgutil.iter_modules(v2.__path__):\n"
         "    importlib.import_module(v2.__name__ + '.' + m.name)\n"

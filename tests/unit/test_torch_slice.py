@@ -11,7 +11,8 @@
   |diff| <= 5e-2 and mean <= 5e-4 (the AA and flare goldens are in
   ``test_torch_aa.py``).
 * The CLI writes a PNG, with AA and lens flare and for the V2 disk too;
-  every unported feature raises, and so do more row bands than devices.
+  ``--interactive`` reaches the session, ``--disk_texture auto`` raises,
+  and so do more row bands than devices.
 """
 
 import os
@@ -290,14 +291,44 @@ def test_cli_renders_v2_disk(flags, tmp_path):
     assert img.max() > 128  # the disk is lit
 
 
-@pytest.mark.parametrize("flags", [
-    ["--interactive"], ["--disk_model", "v2", "--interactive"],
-    ["--disk_texture", "auto"], ["--coordinator_address", "localhost:1234"],
-    ["--disk_model", "v2", "--coordinator_address", "localhost:1234"],
-])
-def test_cli_refuses_unported_features(flags, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(flags + ["--device", "cpu", "-o", str(tmp_path / "x.png")])
+# What the CLI does with the switches of modes beyond the still frame:
+# the interactive session and the one-process "fleet" run, and
+# --disk_texture auto is still refused. (The cases keep the ids they had
+# while all five were refusals.)
+@pytest.mark.parametrize("flags,outcome", [
+    (["--interactive"], "interactive"),
+    (["--disk_model", "v2", "--interactive"], "interactive"),
+    (["--disk_texture", "auto"], "item 14"),
+    (["--coordinator_address", "localhost:1234"], "needs the fleet's size"),
+    (["--disk_model", "v2", "--coordinator_address", "localhost:1234"],
+     "needs the fleet's size"),
+], ids=[f"flags{i}" for i in range(5)])
+def test_cli_refuses_unported_features(flags, outcome, tmp_path, monkeypatch):
+    argv = flags + ["--device", "cpu", "-o", str(tmp_path / "x.png")]
+    if outcome == "interactive":
+        # Ported: --interactive reaches the session's dispatcher with
+        # the scene's config, on the chosen device.
+        import bhr_tpu_torch.interactive as tinter
+
+        seen = []
+        monkeypatch.setattr(tinter, "run_interactive",
+                            lambda config, **kw: seen.append((config, kw)))
+        assert cli.main(argv + ["--preview_port", "8089"]) == 0
+        (config, kw), = seen
+        assert config.interactive and config.device == "cpu"
+        assert config.disk_model == ("v2" if "v2" in flags else "texture")
+        assert kw == {"preview_port": 8089, "preview_host": "127.0.0.1"}
+    elif outcome == "item 14":
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP.md Queue 1 item 14"):
+            cli.main(argv)
+    else:
+        # Ported: a fleet is joined with its size and this process's
+        # rank; the address alone is argparse's error, exit code 2.
+        with pytest.raises(SystemExit) as exc:
+            cli.main(argv)
+        assert exc.value.code == 2
+    assert os.listdir(tmp_path) == []
 
 
 def test_cli_tile_shards_need_as_many_devices(tmp_path):

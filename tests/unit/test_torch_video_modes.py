@@ -15,8 +15,9 @@ the CPU.
   ``generation_scale`` is keyed.
 * The CLI's video flags have ``bhr_tpu``'s defaults, ``--video`` reaches
   ``modes.render_video``, ``--video --disk_model v2`` renders, the
-  multi-host flags and ``--interactive`` are refused naming their ROADMAP
-  items, and ``--device cuda`` without a GPU raises.
+  multi-host flags join a group (of one here; two processes are in
+  ``test_torch_fleet.py``), ``--interactive`` wins over ``--video``, and
+  ``--device cuda`` without a GPU raises.
 """
 
 import dataclasses
@@ -388,17 +389,47 @@ def test_cli_renders_a_video(tmp_path, capsys):
     assert json.loads(line[len("Video stats: "):])["frames"] == 0
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--coordinator_address", "localhost:1234"], "item 17"),
-    (["--video", "--coordinator_address", "localhost:1234",
-      "--num_processes", "2", "--process_id", "0"], "item 17"),
-    (["--video", "--orbit", "--interactive"], "item 13"),
-    (["--video", "--disk_model", "v2", "--interactive"], "item 13"),
-])
-def test_cli_refuses_unported_video_features(flags, item, tmp_path):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {item}"):
-        cli.main(flags + ["--device", "cpu", "-o", str(tmp_path / "x.mp4")])
-    assert os.listdir(tmp_path) == []
+# The video switches that used to be refused (the cases keep their ids):
+# the fleet flags now join a group, --interactive wins over --video as
+# in bhr_tpu's CLI.
+@pytest.mark.parametrize("flags,outcome", [
+    (["--coordinator_address", "localhost:1234"], "exit 2"),
+    (["--video", "--orbit", "--coordinator_address", "127.0.0.1:{port}",
+      "--num_processes", "1", "--process_id", "0"], "video"),
+    (["--video", "--orbit", "--interactive"], "interactive"),
+    (["--video", "--disk_model", "v2", "--interactive"], "interactive"),
+], ids=["flags0-item 17", "flags1-item 17", "flags2-item 13", "flags3-item 13"])
+def test_cli_refuses_unported_video_features(flags, outcome, tmp_path,
+                                             monkeypatch, capsys):
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    argv = [f.format(port=port) for f in flags] + [
+        "--device", "cpu", "--width", "32", "--height", "16", "--n_frames", "2",
+        "--n_stars", "50", "-o", str(tmp_path / "x.mp4")]
+    if outcome == "exit 2":
+        # The address without the fleet's size: argparse's error.
+        with pytest.raises(SystemExit) as exc:
+            cli.main(argv)
+        assert exc.value.code == 2
+        assert os.listdir(tmp_path) == []
+    elif outcome == "video":
+        # A fleet of one: joined, announced, rendered, left again.
+        assert cli.main(argv) == 0
+        assert "multi-host: 1 processes, 1 devices total" in capsys.readouterr().out
+        assert len(_frames(tmp_path)) == 2
+        assert not torch.distributed.is_initialized()
+    else:
+        import bhr_tpu_torch.interactive as tinter
+
+        seen = []
+        monkeypatch.setattr(tinter, "run_interactive",
+                            lambda config, **kw: seen.append(config))
+        assert cli.main(argv) == 0
+        assert seen[0].interactive and seen[0].video
+        assert os.listdir(tmp_path) == []  # no video was rendered
 
 
 def test_cli_renders_v2_video(tmp_path, capsys):
