@@ -13,9 +13,11 @@ where there is a display, an MJPEG stream over HTTP with
 ``--preview_port``, else a short PNG preview. ``--coordinator_address
 HOST:PORT --num_processes N --process_id K`` joins N processes into one
 fleet that renders an orbit video together (``parallel/video.py``); each
-process renders on the devices visible to it. ``--disk_texture auto`` is
-the one switch still refused with NotImplementedError, naming the
-ROADMAP item that ports it.
+process renders on the devices visible to it. ``--disk_texture auto``
+renders a still with the static procedural disk, generated once per
+radii, seed, texture size and ``--disk_generation_scale`` and then
+loaded from ``output/.disk_texture_cache/`` (``utils/cache.py``;
+``--force_regenerate_disk_texture`` makes it anew).
 
 Usage:
     python -m bhr_tpu_torch.cli --pov 6 0 0.5 --fov 90 -r fhd -o out/frame.png
@@ -23,6 +25,7 @@ Usage:
     python -m bhr_tpu_torch.cli -r sd --device cpu -o out/frame.png
     python -m bhr_tpu_torch.cli -r 4k --tile_shards 4   # on a 4-GPU host
     python -m bhr_tpu_torch.cli -r fhd --disk_model v2 --v2_palette scientific
+    python -m bhr_tpu_torch.cli -r fhd --disk_texture auto
     python -m bhr_tpu_torch.cli --video --orbit -r fhd --n_frames 240 \\
         --fps 24 -o out/orbit.mp4          # add --resume to continue
     python -m bhr_tpu_torch.cli --interactive --preview_port 8089
@@ -38,7 +41,11 @@ import json
 import sys
 
 from .config import DEVICES, RESOLUTIONS, SceneConfig
-from .constants import R_DISK_INNER_DEFAULT, R_DISK_OUTER_DEFAULT
+from .constants import (
+    DISK_GENERATION_SCALE_CHOICES,
+    R_DISK_INNER_DEFAULT,
+    R_DISK_OUTER_DEFAULT,
+)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -66,11 +73,21 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--n_stars", type=int, default=6000,
                    help="procedural skybox star count")
     p.add_argument("--disk_texture", type=str, default=None,
-                   help="external disk texture (static single-frame only)")
+                   help="external disk texture (static single-frame "
+                        "only), or 'auto' to generate-and-cache the "
+                        "static procedural texture "
+                        "(output/.disk_texture_cache)")
     p.add_argument("--disk_model", type=str, default="texture",
                    choices=["texture", "v2"],
                    help="disk shading model: the lifecycle texture, or "
                         "the v2 volume integrator")
+    p.add_argument("--disk_generation_scale", type=int, default=2,
+                   choices=DISK_GENERATION_SCALE_CHOICES,
+                   help="low-res generation factor for --disk_texture "
+                        "auto; unused by the lifecycle system")
+    p.add_argument("--force_regenerate_disk_texture", action="store_true",
+                   help="with --disk_texture auto: regenerate the cached "
+                        "static texture; otherwise inert")
     v2 = p.add_argument_group(
         "disk_v2", "volume-model knobs (with --disk_model v2); "
         "mirrors DiskV2Params/DiskV2StructureParams"
@@ -143,7 +160,17 @@ def build_parser() -> argparse.ArgumentParser:
                    help="H.264 quality (x264 CRF, 0=lossless..51; "
                         "default 18 ~ visually lossless)")
     p.add_argument("--resume", action="store_true")
+    # Deprecated in bhr_tpu and read by nothing here: parsed so that its
+    # command lines run unchanged.
+    p.add_argument("--disk_rotation_algorithm", type=str, default="baseline",
+                   choices=["baseline", "parametric", "keyframes"],
+                   help="[deprecated] ignored: the lifecycle system is "
+                        "always used")
     p.add_argument("--disk_rotation_speed", type=float, default=0.1)
+    p.add_argument("--keyframes_count", type=int, default=10,
+                   help="[deprecated] ignored")
+    p.add_argument("--ignore_taichi_cache", action="store_true",
+                   help="[deprecated] ignored")
     p.add_argument("--coordinator_address", type=str, default=None,
                    help="multi-host rendering: host:port where process 0 "
                         "listens (run one process per host, or per card; "
@@ -196,6 +223,8 @@ def config_from_args(args: argparse.Namespace) -> SceneConfig:
         resume=args.resume,
         disk_rotation_speed=args.disk_rotation_speed,
         seed=args.seed,
+        disk_generation_scale=args.disk_generation_scale,
+        force_regenerate_disk_texture=args.force_regenerate_disk_texture,
     ).validated()
 
 

@@ -2,15 +2,11 @@
 
 The port of ``bhr_tpu/config.py``. The fields it shares and their
 validation rules are the same, so a scene means the same thing in both
-packages. It leaves out the settings of what it does not have (the
-static texture generator, deprecated flags), and differs in two ways:
-
-* ``device`` names a torch device, ``"cuda"`` (the default) or
-  ``"cpu"``, and :func:`torch_device` refuses ``"cuda"`` on a host
-  without a GPU instead of dropping to the CPU.
-* Features the port does not have yet raise ``NotImplementedError``
-  from :meth:`SceneConfig.validated`, naming the ROADMAP item that
-  ports them, rather than rendering something else.
+packages. It leaves out the deprecated settings that only ``bhr_tpu``'s
+config reads (the CLI parses and ignores their flags), and ``device``
+names a torch device, ``"cuda"`` (the default) or ``"cpu"``:
+:func:`torch_device` refuses ``"cuda"`` on a host without a GPU instead
+of dropping to the CPU.
 """
 
 from __future__ import annotations
@@ -20,6 +16,7 @@ from dataclasses import dataclass
 from typing import Optional, Tuple
 
 from .constants import (
+    DISK_GENERATION_SCALE_CHOICES,
     R_DISK_INNER_DEFAULT,
     R_DISK_OUTER_DEFAULT,
     RS,
@@ -63,6 +60,10 @@ class SceneConfig:
     disk_tilt: float = 0.0
     disk_rotation_speed: float = 0.1
     seed: int = 42
+    # --disk_texture auto: low-res generation factor of the static
+    # texture, and regenerate over its cached file.
+    disk_generation_scale: int = 2
+    force_regenerate_disk_texture: bool = False
 
     # Disk V2 (volume model) surface: mirrors DiskV2Params /
     # DiskV2StructureParams (reference disk_v2/params.py:12-144) plus
@@ -133,8 +134,7 @@ class SceneConfig:
         return RESOLUTIONS[self.resolution]
 
     def validated(self) -> "SceneConfig":
-        """Validate and normalize; raises ValueError on bad input and
-        NotImplementedError on a feature the port does not have yet."""
+        """Validate and normalize; raises ValueError on bad input."""
         if not (0.0 < self.fov < 180.0):
             raise ValueError(f"FOV must be in (0, 180), got {self.fov}")
         pov_dist = _cam_distance(self.pov)
@@ -160,6 +160,11 @@ class SceneConfig:
             )
         if self.step_size <= 0:
             raise ValueError(f"step_size must be positive, got {self.step_size}")
+        if self.disk_generation_scale not in DISK_GENERATION_SCALE_CHOICES:
+            raise ValueError(
+                f"disk_generation_scale must be one of "
+                f"{DISK_GENERATION_SCALE_CHOICES}, got {self.disk_generation_scale}"
+            )
         if not (0.5 <= self.aa_strength <= 2.0):
             raise ValueError(f"aa_strength must be in [0.5, 2.0], got {self.aa_strength}")
         if self.n_frames <= 0:
@@ -234,12 +239,6 @@ class SceneConfig:
         if self.device not in DEVICES:
             raise ValueError(
                 f"device must be one of {DEVICES}, got {self.device!r}")
-        for requested, feature, item in _UNPORTED:
-            if requested(self):
-                raise NotImplementedError(
-                    f"{feature} is not ported to bhr_tpu_torch yet "
-                    f"(ROADMAP.md {item}); use bhr_tpu for it"
-                )
         return self
 
     def v2_params(self):
@@ -282,16 +281,6 @@ class SceneConfig:
         They feed the texture-model mip-LOD sampler only; the v2 volume
         integrator has no LOD path (``bhr_tpu/config.py:279-287``)."""
         return self.anti_alias != "disabled" and self.disk_model != "v2"
-
-
-# (predicate, feature, ROADMAP item that ports it). The still frame
-# (whole or in row bands), the orbit video (one process or a fleet) and
-# the interactive session, of a texture-model scene with AA and lens
-# flare or of a V2 volume disk, are what the port renders so far.
-_UNPORTED = (
-    (lambda c: c.disk_texture == "auto", "--disk_texture auto",
-     "Queue 1 item 14"),
-)
 
 
 def torch_device(name: str):

@@ -45,10 +45,14 @@ from .utils.io import (
 def _scene_assets(config: SceneConfig, device) -> tuple:
     """(skybox, disk_tex_or_None, dynamic_or_None) for a config.
 
-    One texture-source policy for every engine: V2 -> no texture and no
-    lifecycle system; an explicit ``disk_texture`` path is loaded or
-    fails loudly; otherwise the disk comes from the lifecycle system (a
-    zero placeholder texture until it advances).
+    One texture-source policy for every engine (the whole frame and the
+    tiled still): V2 -> no texture and no lifecycle system;
+    ``disk_texture='auto'`` -> the static texture of the ``.npy`` cache
+    (generated on ``device`` once per radii, seed, texture size and
+    generation scale, reloaded on later runs;
+    ``force_regenerate_disk_texture`` makes it anew); an explicit path is
+    loaded or fails loudly; otherwise the disk comes from the lifecycle
+    system (a zero placeholder texture until it advances).
     """
     width, height = config.image_size
     skybox, _, _ = load_or_generate_skybox(
@@ -58,6 +62,19 @@ def _scene_assets(config: SceneConfig, device) -> tuple:
         # V2 shades by volume integration: no disk texture
         # (config.validated() rejects v2 + disk_texture).
         return skybox, None, None
+    if config.disk_texture == "auto":
+        from .utils.cache import load_cached_disk_texture
+
+        disk_tex = load_cached_disk_texture(
+            width, height, list(config.pov), config.fov,
+            seed=config.seed,
+            r_inner=config.disk_inner_radius,
+            r_outer=config.disk_outer_radius,
+            force=config.force_regenerate_disk_texture,
+            generation_scale=config.disk_generation_scale,
+            device=device,
+        )
+        return skybox, disk_tex, None
     disk_tex = load_disk_texture(config.disk_texture)
     if config.disk_texture is not None and disk_tex is None:
         # A path typo must not render the procedural disk instead.
@@ -95,8 +112,8 @@ def _make_renderer(config: SceneConfig,
 def render_image(config: SceneConfig) -> np.ndarray:
     """Render one frame -> (H, W, 3) float32 in [0, 1]; the disk texture
     is generated by the lifecycle system at t=0 unless an external disk
-    texture is given (a V2 scene has neither: it shades by volume
-    integration). With ``tile_shards > 1`` the frame's pixel rows
+    texture or ``disk_texture='auto'`` (the static texture of the cache)
+    is given (a V2 scene has neither: it shades by volume integration). With ``tile_shards > 1`` the frame's pixel rows
     shard over the visible devices (``parallel.frames.render_image_tiled``):
     the same image, traced band by band."""
     config = config.validated()

@@ -148,9 +148,32 @@ exits non-zero without printing a result:
    steady beside phase 7d's one-process figures; where several cards are
    visible, also one process per card (``CUDA_VISIBLE_DEVICES=k``) beside
    one process over all cards;
-10. a JSON line describing every instantiation at FHD (kernel, plain
+10. the static disk of ``--disk_texture auto``, with the texture cache
+   in a fresh directory under ``output/`` (removed at the end): (a) the
+   random bits of ``ops/random.py`` made on the card bit-equal to the
+   CPU's (the FHD pixel-noise draw, its uniform floats, a batched draw);
+   the texture generated on the card at the golden scene's size (336x128)
+   and at the FHD CLI size (2912x416, generation scale 2), each within
+   1e-4 of the CPU port's texture and generated twice (cold, then warm:
+   equal), with the ms of each generator (CUDA events at
+   ``generate_component_fields``' ``on_stage`` marks), the device
+   timeline and wall ms, the peak memory, the device's busy share and
+   kernel count of one FHD generation (torch.profiler), and the 4K
+   (5824x832) generation's time and peak memory; (b) the golden scene with
+   ``disk_texture="auto"`` on the card against the CPU port's render
+   (max 5e-2 / mean 5e-4), exactly one ``ray_march_slim`` launch, no
+   plain trace call, a bright ring and a dark shadow; (c) ``-r fhd
+   --disk_texture auto`` through ``cli.main`` cold (generated and saved)
+   and warm (loaded: the cache file is not rewritten), and with the AA +
+   flare flags (one ``ray_march_aa``), each with the counts set to 0
+   just before it and read just after and no plain trace call; the cache
+   file's size and load time; the warm frame's stage medians (trace,
+   shade, post: no texture stage), host ms to enqueue and busy share; the
+   still in 4 bands (4 ``ray_march_slim`` launches) within 2e-5 of the
+   whole frame;
+11. a JSON line describing every instantiation at FHD (kernel, plain
    version, FP32-operation bound and issue bound times; ``launches`` sums
-   the paths of phases 5, 6c, 6d, 7d, 8 and 9), then the result line
+   the paths of phases 5, 6c, 6d, 7d, 8, 9 and 10c), then the result line
    ``{"ok": true, "device": {...}}`` as the last line.
 
 Imports torch, numpy and bhr_tpu_torch only.
@@ -163,6 +186,7 @@ import io
 import json
 import os
 import re
+import shutil
 import socket
 import statistics
 import subprocess
@@ -605,17 +629,20 @@ def device_busy_share(fn):
     return busy_us / wall_us, sum(e.count for e in on_card)
 
 
-def v2_stage_times(cfg, frames: int = 4):
-    """A V2 frame's stages (no texture stage): median ms over frames 1..
-    (frame 0 warms up) with CUDA events, the median host ms to enqueue a
-    frame, the device's busy share of one more frame and the kernels and
-    copies it ran (``device_busy_share``), and the last frame."""
+def static_stage_times(cfg, frames: int = 4):
+    """The stages of a frame without a texture stage (a V2 frame, or one
+    with the static ``--disk_texture auto`` disk): median ms over frames
+    1.. (frame 0 warms up) with CUDA events, the median host ms to
+    enqueue a frame, the device's busy share of one more frame and the
+    kernels and copies it ran (``device_busy_share``), and the last
+    frame."""
     from bhr_tpu_torch.config import escape_radius
     from bhr_tpu_torch.modes import _make_renderer
 
     renderer, dynamic = _make_renderer(cfg)
-    check(dynamic is None and renderer.disk_mips is None,
-          "a V2 scene made a lifecycle system or a disk texture")
+    check(dynamic is None and (renderer.disk_mips is None) == (cfg.disk_model == "v2"),
+          "a scene without a texture stage made a lifecycle system, or its "
+          "disk texture is missing or unexpected")
     r_escape = escape_radius(cfg.r_max, cfg.pov)
     stages = {"trace": [], "shade": [], "post": []}
     host, frame = [], None
@@ -1791,6 +1818,224 @@ def fleet_phase(fhd_video_stats, smi) -> dict:
     return path
 
 
+def timed_texture(n_phi, n_r, r_inner, r_outer, scale):
+    """One generation of the static texture on cuda:0 through the pieces
+    of ``generate_disk_texture`` (``generate_component_fields`` with a
+    CUDA event at each ``on_stage`` mark, then the stats and the compose)
+    -> (texture, ms per stage, device-timeline ms, wall ms, peak bytes)."""
+    from bhr_tpu_torch.models.disk_texture import (
+        _component_stats,
+        compose_from_components,
+        generate_component_fields,
+    )
+    from bhr_tpu_torch.utils.io import compute_edge_alpha
+
+    marks = []
+
+    def mark(stage):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((stage, ev))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mark("start")
+    comp, _ = generate_component_fields(42, n_r, n_phi, r_inner, r_outer, True,
+                                        scale, "cuda", on_stage=mark)
+    edge = torch.as_tensor(compute_edge_alpha(n_r), device="cuda")
+    stats = _component_stats(comp, edge, True)
+    mark("stats")
+    tex = compose_from_components(comp, edge, *stats, True, torch.tensor(
+        6000.0, device="cuda"))
+    mark("compose")
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    ms = {b[0]: a[1].elapsed_time(b[1]) for a, b in zip(marks, marks[1:])}
+    return (tex, ms, marks[0][1].elapsed_time(marks[-1][1]), wall,
+            torch.cuda.max_memory_allocated())
+
+
+@contextlib.contextmanager
+def fresh_texture_cache():
+    """Points the texture cache at a new directory under output/ (so the
+    first auto frame of a run is cold) and removes it afterwards."""
+    import tempfile
+
+    import bhr_tpu_torch.utils.cache as tcache
+
+    os.makedirs("output", exist_ok=True)
+    default = tcache.DEFAULT_CACHE_DIR
+    tcache.DEFAULT_CACHE_DIR = tempfile.mkdtemp(prefix="torch_auto_cache_", dir="output")
+    try:
+        yield tcache.DEFAULT_CACHE_DIR
+    finally:
+        shutil.rmtree(tcache.DEFAULT_CACHE_DIR, ignore_errors=True)
+        tcache.DEFAULT_CACHE_DIR = default
+
+
+def auto_disk_phase(launches, reset_counts, cache_dir) -> dict:
+    """Phase 10: the static disk of ``--disk_texture auto``, its texture
+    cache in ``cache_dir`` (empty) -> this path's launches."""
+    import bhr_tpu_torch.cli as cli
+    from bhr_tpu_torch.config import SceneConfig, compute_disk_texture_resolution
+    from bhr_tpu_torch.models.disk_texture import generate_disk_texture
+    from bhr_tpu_torch.modes import render_image
+    from bhr_tpu_torch.ops import random as trandom
+    from bhr_tpu_torch.parallel.frames import render_image_tiled
+    from bhr_tpu_torch.utils.cache import texture_cache_key
+
+    fhd_flags = ["-r", "fhd", "--disk_texture", "auto"]
+    parse = cli.build_parser().parse_args
+    fhd = cli.config_from_args(parse(fhd_flags))
+    fhd_size = compute_disk_texture_resolution(
+        *fhd.image_size, fhd.pov, fhd.fov, fhd.disk_inner_radius, fhd.disk_outer_radius)
+    golden_size = compute_disk_texture_resolution(320, 180, POV, GOLDEN["fov"], 2.0, 3.5)
+    scale = fhd.disk_generation_scale
+
+    # 10a. the random bits on the card against the CPU's, at the FHD
+    # texture's low-res pixel-noise shape and as tileable_noise batches them.
+    keys = trandom.split(trandom.prng_key(fhd.seed), 9)
+    shape = (fhd_size[1] // scale, fhd_size[0] // scale)
+    for k in keys:
+        a, b = (trandom.random_bits(k, shape, device=d) for d in ("cuda", "cpu"))
+        check(torch.equal(a.cpu(), b), f"random bits differ on the card for key {k}")
+        check(torch.equal(trandom.uniform_from_bits(a, 0.05, 0.95).cpu(),
+                          trandom.uniform_from_bits(b, 0.05, 0.95)),
+              "uniform draws differ on the card")
+        many = [trandom.random_bits_many([*trandom.split(k, 7)], [(60,)] * 7, d)
+                for d in ("cuda", "cpu")]
+        check(all(torch.equal(x.cpu(), y) for x, y in zip(*many)),
+              "batched random bits differ on the card")
+    say(f"[auto bits] {len(keys)} keys: the {shape[0]}x{shape[1]} draw, its uniform "
+        f"floats and 7 batched draws of 60 bit-equal on cuda and cpu")
+
+    # The texture on the card against the CPU port's, at the golden and
+    # the FHD sizes; each generated twice on the card (cold, then warm).
+    for tag, (n_phi, n_r), radii in (("golden", golden_size, (2.0, 3.5)),
+                                     ("fhd", fhd_size, (fhd.disk_inner_radius,
+                                                        fhd.disk_outer_radius))):
+        runs = [timed_texture(n_phi, n_r, *radii, scale) for _ in range(2)]
+        t0 = time.perf_counter()
+        cpu = generate_disk_texture(n_phi=n_phi, n_r=n_r, seed=42, r_inner=radii[0],
+                                    r_outer=radii[1], generation_scale=scale,
+                                    device="cpu")
+        cpu_s = time.perf_counter() - t0
+        diff = (runs[0][0].cpu().double() - cpu.double()).abs()
+        same = torch.equal(runs[0][0], runs[1][0])
+        say(f"[auto texture {tag} {n_phi}x{n_r} scale {scale}] cuda vs cpu max "
+            f"{float(diff.max()):.3e} mean {float(diff.mean()):.3e}; two cuda "
+            f"generations equal: {same}; cpu generation {cpu_s:.2f} s")
+        check(tuple(runs[0][0].shape) == (n_r, n_phi, 4)
+              and bool(torch.isfinite(runs[0][0]).all()), f"{tag} texture shape/finite")
+        check(float(diff.max()) <= 1e-4 and same, f"{tag} texture cuda vs cpu")
+        for which, (_, ms, timeline, wall, peak) in zip(("cold", "warm"), runs):
+            say(f"[auto texture {tag} {which}] ms by stage (CUDA events): " + ", ".join(
+                f"{k} {v:.3f}" for k, v in ms.items()) + f"; device timeline "
+                f"{timeline:.3f}, wall {wall:.3f}; peak memory {peak / 2**30:.3f} GiB")
+        del runs, cpu
+    busy, n_kernels = device_busy_share(lambda: generate_disk_texture(
+        n_phi=fhd_size[0], n_r=fhd_size[1], seed=42, r_inner=fhd.disk_inner_radius,
+        r_outer=fhd.disk_outer_radius, generation_scale=scale, device="cuda"))
+    say("[auto texture fhd profile] " + (
+        "not measured (the profiler reported no device time)" if busy is None else
+        f"device busy {busy:.1%} of the generation's wall time, in {n_kernels} "
+        f"kernels and copies"))
+    size_4k = compute_disk_texture_resolution(3840, 2160, POV, fhd.fov,
+                                              fhd.disk_inner_radius, fhd.disk_outer_radius)
+    _, ms, timeline, wall, peak = timed_texture(*size_4k, fhd.disk_inner_radius,
+                                                fhd.disk_outer_radius, scale)
+    say(f"[auto texture 4k {size_4k[0]}x{size_4k[1]} scale {scale}] device timeline "
+        f"{timeline:.3f} ms, wall {wall:.3f}; peak memory {peak / 2**30:.3f} GiB")
+
+    # 10b. the golden scene with the static disk, on the card against the
+    # CPU port (the CPU render regenerates over the card's cache file).
+    golden = {**GOLDEN, "disk_texture": "auto"}
+    with counted_plain_traces() as plain_calls:
+        reset_counts()
+        img = render_image(SceneConfig(device="cuda", **golden))
+        launched = dict(launches)
+    ref = render_image(SceneConfig(device="cpu", force_regenerate_disk_texture=True,
+                                   **golden))
+    diff = np.abs(img.astype(np.float64) - ref)
+    center = img[90 - 16: 90 + 16, 160 - 16: 160 + 16]
+    say(f"[golden auto] vs the CPU port's render max {diff.max():.3e} mean "
+        f"{diff.mean():.3e}; ray_march_slim launches {launched['ray_march_slim']}, "
+        f"plain trace calls {plain_calls[0]}")
+    check(img.shape == (180, 320, 3) and np.isfinite(img).all()
+          and diff.max() <= 5e-2 and diff.mean() <= 5e-4, "golden auto outside bounds")
+    expect_launches(launched, "ray_march_slim", "golden auto")
+    check(not plain_calls[0], "golden auto ran the plain trace")
+    check(img.max() > 0.5 and (img.sum(axis=-1) > 0.02).mean() > 0.05
+          and (center.sum(axis=-1) < 0.05).mean() > 0.5,
+          "golden auto: no bright ring or no dark shadow")
+
+    # 10c. the FHD still through the CLI: cold (the texture generated and
+    # saved), warm (loaded from the cache), AA + flare, and in bands.
+    path = {"ray_march_slim": 0, "ray_march_aa": 0}
+    cache_file = os.path.join(cache_dir, texture_cache_key(
+        fhd.disk_inner_radius, fhd.disk_outer_radius, fhd.seed, *fhd_size, scale))
+    check(not os.path.exists(cache_file), "the FHD texture is cached before its cold run")
+    saved = None
+    for tag, flags, expected in (("cold", [], "ray_march_slim"),
+                                 ("warm", [], "ray_march_slim"),
+                                 ("aa_flare", AA_FLAGS, "ray_march_aa")):
+        out_png = os.path.join("output", f"torch_fhd_auto_{tag}.png")
+        with counted_plain_traces() as plain_calls:
+            reset_counts()
+            t0 = time.perf_counter()
+            check(cli.main([*fhd_flags, *flags, "-o", out_png]) == 0, "CLI exit code")
+            wall = time.perf_counter() - t0
+            launched = dict(launches)
+        stamp = os.stat(cache_file).st_mtime_ns
+        say(f"[fhd-cli auto {tag}] {' '.join(fhd_flags + flags)}: {wall:.2f} s; "
+            f"{expected} launches {launched[expected]}, plain trace calls "
+            f"{plain_calls[0]}; texture "
+            + ("generated and saved" if saved is None else "loaded from the cache"))
+        expect_launches(launched, expected, f"FHD auto {tag} frame")
+        check(not plain_calls[0], f"FHD auto {tag} ran the plain trace")
+        check(saved in (None, stamp), f"FHD auto {tag} regenerated a cached texture")
+        saved = stamp
+        path[expected] += launched[expected]
+    t0 = time.perf_counter()
+    np.load(cache_file)
+    say(f"[auto cache] {os.path.getsize(cache_file)} bytes, np.load "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+
+    med, host_ms, busy, n_kernels, frame = static_stage_times(fhd)
+    check(bool(torch.isfinite(frame).all()) and frame.shape == (1080, 1920, 3)
+          and float(frame.max()) > 0.5, "FHD auto frame not finite or dark")
+    say("[fhd-frame auto] median ms over 3 frames: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in med.items())
+        + f"; total {sum(med.values()):.3f} (no texture stage); host "
+        f"{host_ms:.3f} ms to enqueue a frame; device busy "
+        + ("not measured (the profiler reported no device time)"
+           if busy is None else f"{busy:.1%} of a frame's wall time, in "
+           f"{n_kernels} kernels and copies"))
+    del frame
+
+    n_cards = torch.cuda.device_count()
+    tile_devs = ([torch.device("cuda", i) for i in range(TILES)] if n_cards >= TILES
+                 else [torch.device("cuda", 0)] * TILES)
+    with counted_plain_traces() as plain_calls:
+        reset_counts()
+        tiled = render_image_tiled(cli.config_from_args(parse(
+            [*fhd_flags, "--tile_shards", str(TILES)])), devices=tile_devs)
+        launched = dict(launches)
+    whole = render_image(fhd)
+    diff = np.abs(tiled - whole)
+    say(f"[tiles fhd auto] {TILES} bands on {', '.join(map(str, tile_devs))} vs the "
+        f"whole frame: max {diff.max():.3e}; ray_march_slim band launches "
+        f"{launched['ray_march_slim']}, plain trace calls {plain_calls[0]}")
+    others = {k: v for k, v in launched.items() if k != "ray_march_slim" and v}
+    check(launched["ray_march_slim"] == TILES and not others and not plain_calls[0],
+          f"tiled FHD auto launched {launched}, plain {plain_calls[0]}")
+    check(tiled.shape == (1080, 1920, 3) and diff.max() <= TOL_TILED,
+          f"tiled FHD auto vs whole {diff.max()}")
+    path["ray_march_slim"] += launched["ray_march_slim"]
+    return path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -1962,7 +2207,7 @@ def main() -> int:
     for tag, flags in V2_FLAGS.items():
         v2_cfg = cli.config_from_args(cli.build_parser().parse_args(
             ["-r", "fhd", *flags]))
-        med, host_ms, busy, n_kernels, frame = v2_stage_times(v2_cfg)
+        med, host_ms, busy, n_kernels, frame = static_stage_times(v2_cfg)
         check(bool(torch.isfinite(frame).all()) and frame.shape == (1080, 1920, 3)
               and float(frame.max()) > 0.5, f"FHD {tag} frame not finite or dark")
         say(f"[fhd-frame {tag}] median ms over 3 frames: " + ", ".join(
@@ -2124,7 +2369,12 @@ def main() -> int:
     for name, n in fleet_phase(fhd_video_stats, smi).items():
         path_launches[name] += n
 
-    # 10. results
+    # 10. the static disk of --disk_texture auto
+    with fresh_texture_cache() as cache_dir:
+        for name, n in auto_disk_phase(launches, reset_counts, cache_dir).items():
+            path_launches[name] += n
+
+    # 11. results
     say(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

@@ -97,6 +97,11 @@ try:
                            devices=CPUS)
 except ValueError as exc:
     print("REFUSED", pid, exc, flush=True)
+# Leave the group as cli.main does, so no process exits while a peer's
+# connection is still open.
+from bhr_tpu_torch.parallel.mesh import fleet_barrier, shutdown_multihost
+fleet_barrier()
+shutdown_multihost()
 print("WORKER_OK", pid, flush=True)
 """
 

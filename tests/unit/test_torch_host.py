@@ -40,20 +40,24 @@ _GOLDEN = dict(width=320, height=180, pov=(6.0, 0.0, 0.5), fov=60.0,
 
 
 def test_port_imports_no_jax():
+    # Every module of the package, found by walking it (so a new module is
+    # held to the rule without being listed here): none may pull in JAX or
+    # bhr_tpu, and none may import a viewer library (matplotlib, PIL) at
+    # import time; the viewers import theirs when a window or JPEG is made.
     code = (
-        "import sys\n"
-        "import bhr_tpu_torch, bhr_tpu_torch.cli, bhr_tpu_torch.modes\n"
-        "import bhr_tpu_torch.interop, bhr_tpu_torch.ops.geodesic_cuda\n"
-        "import bhr_tpu_torch.parallel.video, bhr_tpu_torch.native\n"
-        "import bhr_tpu_torch.interactive, bhr_tpu_torch.utils.preview_server\n"
+        "import importlib, pkgutil, sys\n"
+        "import bhr_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    bhr_tpu_torch.__path__, 'bhr_tpu_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "for name in ('bhr_tpu_torch.ops.random', 'bhr_tpu_torch.utils.cache',\n"
+        "             'bhr_tpu_torch.models.disk_v2.preview',\n"
+        "             'bhr_tpu_torch.utils.preview_server'):\n"
+        "    assert name in names, name\n"
         "from bhr_tpu_torch.parallel.mesh import initialize_multihost\n"
-        "from bhr_tpu_torch.models.dynamic_disk import solo_comp\n"
         "assert initialize_multihost(None) == 1\n"
         "assert 'matplotlib' not in sys.modules and 'PIL' not in sys.modules\n"
-        "import bhr_tpu_torch.models.disk_v2 as v2, importlib, pkgutil\n"
-        "for m in pkgutil.iter_modules(v2.__path__):\n"
-        "    importlib.import_module(v2.__name__ + '.' + m.name)\n"
-        "assert 'bhr_tpu_torch.models.disk_v2.preview' in sys.modules\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'bhr_tpu'))\n"
         "print(bad)\n"

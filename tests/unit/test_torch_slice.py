@@ -10,9 +10,9 @@
   within the cross-backend bounds of ``tests/e2e_render.py``: max
   |diff| <= 5e-2 and mean <= 5e-4 (the AA and flare goldens are in
   ``test_torch_aa.py``).
-* The CLI writes a PNG, with AA and lens flare and for the V2 disk too;
-  ``--interactive`` reaches the session, ``--disk_texture auto`` raises,
-  and so do more row bands than devices.
+* The CLI writes a PNG, with AA and lens flare, for the V2 disk and
+  with ``--disk_texture auto`` too; ``--interactive`` reaches the
+  session, and more row bands than devices raise.
 """
 
 import os
@@ -291,14 +291,16 @@ def test_cli_renders_v2_disk(flags, tmp_path):
     assert img.max() > 128  # the disk is lit
 
 
-# What the CLI does with the switches of modes beyond the still frame:
-# the interactive session and the one-process "fleet" run, and
-# --disk_texture auto is still refused. (The cases keep the ids they had
-# while all five were refusals.)
+# What the CLI does with the switches it once refused: the interactive
+# session, the one-process "fleet" run, and the still with the static
+# --disk_texture auto disk (a small one: the cache lives under tmp_path).
+# (The cases keep the ids they had while all five were refusals.)
 @pytest.mark.parametrize("flags,outcome", [
     (["--interactive"], "interactive"),
     (["--disk_model", "v2", "--interactive"], "interactive"),
-    (["--disk_texture", "auto"], "item 14"),
+    (["--disk_texture", "auto", "--width", "64", "--height", "36", "--fov",
+      "60", "--n_stars", "100", "--disk_outer_radius", "3.5", "--disk_tilt",
+      "15"], "auto"),
     (["--coordinator_address", "localhost:1234"], "needs the fleet's size"),
     (["--disk_model", "v2", "--coordinator_address", "localhost:1234"],
      "needs the fleet's size"),
@@ -318,17 +320,27 @@ def test_cli_refuses_unported_features(flags, outcome, tmp_path, monkeypatch):
         assert config.interactive and config.device == "cpu"
         assert config.disk_model == ("v2" if "v2" in flags else "texture")
         assert kw == {"preview_port": 8089, "preview_host": "127.0.0.1"}
-    elif outcome == "item 14":
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md Queue 1 item 14"):
-            cli.main(argv)
+    elif outcome == "auto":
+        # Ported: the still renders with the generated texture, saved to
+        # the cache once and loaded from it for the second render.
+        import bhr_tpu_torch.utils.cache as tcache
+
+        monkeypatch.setattr(tcache, "DEFAULT_CACHE_DIR", str(tmp_path / "cache"))
+        assert cli.main(argv) == 0
+        config = cli.config_from_args(cli.build_parser().parse_args(argv))
+        assert config.disk_texture == "auto" and config.disk_generation_scale == 2
+        assert [p.name for p in (tmp_path / "cache").iterdir()] == [
+            "disk_2.00_3.50_42_256x128_scale2.npy"]
+        np.testing.assert_array_equal(_read_png_rgb8(tmp_path / "x.png"),
+                                      quantize_frame(render_image(config)))
     else:
         # Ported: a fleet is joined with its size and this process's
         # rank; the address alone is argparse's error, exit code 2.
         with pytest.raises(SystemExit) as exc:
             cli.main(argv)
         assert exc.value.code == 2
-    assert os.listdir(tmp_path) == []
+    if outcome != "auto":
+        assert os.listdir(tmp_path) == []
 
 
 def test_cli_tile_shards_need_as_many_devices(tmp_path):
