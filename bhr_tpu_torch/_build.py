@@ -4,13 +4,18 @@ Each ``csrc/*.cu`` file is one library with a plain C interface, built
 by ``nvcc`` for Hopper (``sm_90a``) and loaded with ``ctypes`` — seconds
 per build, where a source that includes PyTorch's headers takes minutes.
 Each ``csrc/*.cpp`` file is a host library built the same way by ``g++``
-(``build_host``). A library lands in ``bhr_tpu_torch/_build/`` under a
-name keyed by a hash of the source and the flags, so a changed source or
-flag rebuilds and an unchanged one loads the existing file.
+(``build_host``), with a list of link attempts tried in order (the PNG
+encoder links libdeflate where the host has it, else zlib). A library
+lands in ``bhr_tpu_torch/_build/`` under a name keyed by a hash of the
+source, the flags and the attempts, so a changed source or flag rebuilds
+and an unchanged one loads the existing file, whichever attempt built it;
+an existing file that does not load (built on a host with other
+libraries) is built again.
 
 The build runs only from the sources in this package. A missing
-compiler or a compile error raises with the compiler's output; nothing
-here degrades to another implementation.
+compiler, or a compile error in every attempt, raises with the
+compiler's output of each attempt; nothing here degrades to another
+implementation.
 """
 
 from __future__ import annotations
@@ -70,14 +75,16 @@ HOST_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 def build(name: str) -> Built:
     """Compile ``csrc/<name>.cu`` unless its keyed build exists, and load it."""
-    return _build(os.path.join(CSRC_DIR, f"{name}.cu"), find_nvcc, NVCC_FLAGS, ())
+    return _build(os.path.join(CSRC_DIR, f"{name}.cu"), find_nvcc, NVCC_FLAGS, ((),))
 
 
-def build_host(name: str, link_flags=()) -> Built:
-    """Compile the host source ``csrc/<name>.cpp`` with ``g++`` (and
-    ``link_flags`` after the source) unless its keyed build exists, and
-    load it. Raises RuntimeError when there is no ``g++`` or the build
-    fails, e.g. for a missing library or header."""
+def build_host(name: str, *link_attempts) -> Built:
+    """Compile the host source ``csrc/<name>.cpp`` with ``g++`` unless its
+    keyed build exists, and load it. Each of ``link_attempts`` is a tuple
+    of flags put after the source; they are tried in order and the first
+    that builds wins (none given: one attempt without flags). Raises
+    RuntimeError when there is no ``g++`` or every attempt fails, e.g. for
+    a missing library or header, with each attempt's compiler output."""
     def find_gxx() -> str:
         found = shutil.which("g++")
         if not found:
@@ -85,15 +92,16 @@ def build_host(name: str, link_flags=()) -> Built:
         return found
 
     return _build(os.path.join(CSRC_DIR, f"{name}.cpp"), find_gxx, HOST_FLAGS,
-                  tuple(link_flags))
+                  tuple(tuple(a) for a in link_attempts) or ((),))
 
 
-def _build(src: str, find_compiler, flags, link_flags) -> Built:
+def _build(src: str, find_compiler, flags, link_attempts) -> Built:
     name = os.path.splitext(os.path.basename(src))[0]
     with open(src, "rb") as f:
         source = f.read()
-    digest = hashlib.sha256(
-        source + " ".join((*flags, *link_flags)).encode()).hexdigest()
+    digest = hashlib.sha256(source + " | ".join(
+        " ".join((*flags, *attempt)) for attempt in link_attempts).encode()
+                            ).hexdigest()
     out = os.path.join(BUILD_DIR, f"lib{name}_{digest[:16]}.so")
     log_path = out + ".log"
     seconds = 0.0
@@ -106,17 +114,22 @@ def _build(src: str, find_compiler, flags, link_flags) -> Built:
         os.close(fd)
         t0 = time.perf_counter()
         try:
-            proc = subprocess.run(
-                [compiler, *flags, "-o", tmp, src, *link_flags],
-                capture_output=True, text=True,
-            )
-            if proc.returncode != 0:
+            logs = []  # the compiler's output of each attempt, failed ones too
+            for attempt in link_attempts:
+                proc = subprocess.run(
+                    [compiler, *flags, "-o", tmp, src, *attempt],
+                    capture_output=True, text=True,
+                )
+                logs.append(f"[{' '.join(attempt) or 'no link flags'}: exit "
+                            f"{proc.returncode}]\n{proc.stdout}{proc.stderr}")
+                if proc.returncode == 0:
+                    break
+            else:
                 raise RuntimeError(
                     f"{os.path.basename(compiler)} failed to build {src} "
-                    f"(exit {proc.returncode}):\n{proc.stdout}{proc.stderr}"
-                )
+                    f"({len(logs)} attempt(s)):\n" + "".join(logs))
             with open(log_path, "w") as f:
-                f.write(proc.stdout + proc.stderr)
+                f.write("".join(logs))
             os.replace(tmp, out)
         finally:
             if os.path.exists(tmp):
@@ -124,8 +137,17 @@ def _build(src: str, find_compiler, flags, link_flags) -> Built:
         seconds = time.perf_counter() - t0
         print(f"built {os.path.relpath(out, _PKG_DIR)} in {seconds:.2f} s "
               "(set-up)")
+    try:
+        lib = ctypes.CDLL(out)
+    except OSError:
+        if seconds:  # built just now: a real failure
+            raise
+        # A library built on another host (a copied or shared checkout) can
+        # link a library this host lacks: build it again here.
+        os.unlink(out)
+        return _build(src, find_compiler, flags, link_attempts)
     log = ""
     if os.path.isfile(log_path):
         with open(log_path) as f:
             log = f.read()
-    return Built(ctypes.CDLL(out), out, seconds, log)
+    return Built(lib, out, seconds, log)

@@ -1,19 +1,24 @@
-"""The native H.264 writer (C++, loaded via ctypes).
+"""The native PNG encoder and H.264 writer (C++, loaded via ctypes).
 
-The port's own copy of the video part of ``bhr_tpu/native``:
-``csrc/fastvideo.cpp`` writes H.264 in an MP4, MKV or MOV container
-through libavformat / libavcodec / libswscale, for hosts that ship the
-ffmpeg shared libraries and headers but neither the Python bindings nor
-an ffmpeg CLI. ``bhr_tpu_torch/_build.py`` compiles it with ``g++`` at
-first use into the git-ignored ``bhr_tpu_torch/_build/``, keyed by a
-hash of the source.
+The port's own copy of ``bhr_tpu/native``. ``bhr_tpu_torch/_build.py``
+compiles each source with ``g++`` at first use into the git-ignored
+``bhr_tpu_torch/_build/``, keyed by a hash of the source:
 
-Where ``g++``, the libraries or their headers are missing,
-``video_available()`` is False and says why once; the video mode then
-goes down its documented chain (native, ffmpeg CLI, MJPEG AVI, frames
-kept), and the PNG frames and ``progress.json`` stay the product.
-``bhr_tpu``'s native PNG encoder is not copied: the port's PNG encoder
-is ``zlib`` (``utils/io.py``).
+- ``csrc/fastpng.cpp`` encodes the PNG of every still and video frame
+  (``utils/io.save_image``): a None/Sub/Up filter per row and deflate at
+  level 2, through libdeflate where the host has it, else zlib. Its
+  bytes equal ``bhr_tpu.native.encode_png_rgb8``'s for the same image,
+  level and backend. Where it does not build, ``png_available()`` is
+  False and says why once, and ``save_image`` writes through the
+  standard library's ``zlib``.
+- ``csrc/fastvideo.cpp`` writes H.264 in an MP4, MKV or MOV container
+  through libavformat / libavcodec / libswscale, for hosts that ship the
+  ffmpeg shared libraries and headers but neither the Python bindings
+  nor an ffmpeg CLI. Where ``g++``, the libraries or their headers are
+  missing, ``video_available()`` is False and says why once; the video
+  mode then goes down its documented chain (native, ffmpeg CLI, MJPEG
+  AVI, frames kept), and the PNG frames and ``progress.json`` stay the
+  product.
 """
 
 from __future__ import annotations
@@ -27,10 +32,15 @@ import numpy as np
 from . import _build
 
 _LINK_FLAGS = ("-lavformat", "-lavcodec", "-lavutil", "-lswscale")
+# The PNG encoder's link attempts, in order: libdeflate (~3x zlib's
+# deflate throughput), then zlib.
+_PNG_LINK_ATTEMPTS = (("-DUSE_LIBDEFLATE", "-ldeflate"), ("-lz",))
 
 _lock = threading.Lock()
 _loaded = False
 _lib: Optional[ctypes.CDLL] = None
+_png_loaded = False
+_png_lib: Optional[ctypes.CDLL] = None
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -52,25 +62,67 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.fastvideo_read_frame0.restype = ctypes.c_int
 
 
+def _declare_png(lib: ctypes.CDLL) -> None:
+    c_i32, c_vp = ctypes.c_int32, ctypes.c_void_p
+    lib.fastpng_backend.argtypes = []
+    lib.fastpng_backend.restype = ctypes.c_int
+    lib.fastpng_write_rgb8.argtypes = [c_vp, c_i32, c_i32, c_i32,
+                                       ctypes.c_char_p]
+    lib.fastpng_write_rgb8.restype = ctypes.c_int
+    lib.fastpng_encode_rgb8.argtypes = [
+        c_vp, c_i32, c_i32, c_i32,
+        ctypes.POINTER(c_vp), ctypes.POINTER(ctypes.c_size_t)]
+    lib.fastpng_encode_rgb8.restype = ctypes.c_int
+    lib.fastpng_free.argtypes = [c_vp]
+    lib.fastpng_free.restype = None
+
+
+def _load(name, link_attempts, declare, what) -> Optional[ctypes.CDLL]:
+    """Build and load ``csrc/<name>.cpp``; None, with one line saying
+    why, when it cannot be built or loaded on this host."""
+    try:
+        lib = _build.build_host(name, *link_attempts).lib
+        declare(lib)
+        return lib
+    except (RuntimeError, OSError) as exc:
+        # The headline, and the compiler's first error line.
+        lines = str(exc).strip().splitlines() or [repr(exc)]
+        errors = [ln.strip() for ln in lines[1:] if "error" in ln]
+        print(f"{what} unavailable: " + lines[0]
+              + (f" {errors[0]}" if errors else ""))
+        return None
+
+
 def _get_lib() -> Optional[ctypes.CDLL]:
-    """The loaded library, built at the first call; None (with one line
-    saying why) when it cannot be built or loaded on this host."""
+    """The H.264 writer's library, built at the first call; None (with
+    one line saying why) when it cannot be built or loaded on this host."""
     global _loaded, _lib
     if not _loaded:
         with _lock:  # one compile, whichever thread asks first
             if not _loaded:
-                try:
-                    lib = _build.build_host("fastvideo", _LINK_FLAGS).lib
-                    _declare(lib)
-                    _lib = lib
-                except (RuntimeError, OSError) as exc:
-                    # The headline, and the compiler's first error line.
-                    lines = str(exc).strip().splitlines() or [repr(exc)]
-                    errors = [ln.strip() for ln in lines[1:] if "error" in ln]
-                    print("native H.264 writer unavailable: " + lines[0]
-                          + (f" {errors[0]}" if errors else ""))
+                _lib = _load("fastvideo", (_LINK_FLAGS,), _declare,
+                             "native H.264 writer")
                 _loaded = True
     return _lib
+
+
+def _get_png_lib() -> Optional[ctypes.CDLL]:
+    """The PNG encoder's library, as ``_get_lib``."""
+    global _png_loaded, _png_lib
+    if not _png_loaded:
+        with _lock:
+            if not _png_loaded:
+                _png_lib = _load("fastpng", _PNG_LINK_ATTEMPTS, _declare_png,
+                                 "native PNG encoder")
+                _png_loaded = True
+    return _png_lib
+
+
+def _require_png_lib() -> ctypes.CDLL:
+    lib = _get_png_lib()
+    if lib is None:
+        raise RuntimeError("native fastpng unavailable")
+    return lib
 
 
 def _require_lib() -> ctypes.CDLL:
@@ -85,6 +137,46 @@ def _check_rgb8(image: np.ndarray) -> np.ndarray:
         raise ValueError(
             f"expected (H, W, 3) uint8, got {image.dtype} {image.shape}")
     return np.ascontiguousarray(image)
+
+
+def png_available() -> bool:
+    """True when the native PNG encoder built and loaded on this host."""
+    return _get_png_lib() is not None
+
+
+def png_backend() -> str:
+    """The deflate library the PNG encoder links: "libdeflate" or "zlib"."""
+    return "libdeflate" if _require_png_lib().fastpng_backend() else "zlib"
+
+
+def save_png_rgb8(image: np.ndarray, path: str, level: int = 2) -> None:
+    """Write an (H, W, 3) uint8 array as a PNG file through the native
+    encoder (any strides; a copy is made where it is not contiguous).
+    Raises RuntimeError when the encoder is unavailable or fails."""
+    lib = _require_png_lib()
+    img = _check_rgb8(image)
+    h, w = img.shape[:2]
+    rc = lib.fastpng_write_rgb8(img.ctypes.data_as(ctypes.c_void_p), w, h,
+                                int(level), path.encode())
+    if rc != 0:
+        raise RuntimeError(f"fastpng_write_rgb8 failed with code {rc}")
+
+
+def encode_png_rgb8(image: np.ndarray, level: int = 2) -> bytes:
+    """PNG bytes of an (H, W, 3) uint8 array through the native encoder."""
+    lib = _require_png_lib()
+    img = _check_rgb8(image)
+    h, w = img.shape[:2]
+    out, out_len = ctypes.c_void_p(), ctypes.c_size_t()
+    rc = lib.fastpng_encode_rgb8(img.ctypes.data_as(ctypes.c_void_p), w, h,
+                                 int(level), ctypes.byref(out),
+                                 ctypes.byref(out_len))
+    if rc != 0:
+        raise RuntimeError(f"fastpng_encode_rgb8 failed with code {rc}")
+    try:
+        return ctypes.string_at(out.value, out_len.value)
+    finally:
+        lib.fastpng_free(out)
 
 
 def video_available() -> bool:

@@ -1,13 +1,15 @@
 """Image and video IO: PNG save and load, the asynchronous frame writer,
 the inline H.264 assembler, the MJPEG AVI writer, disk texture loading.
 
-The port of ``bhr_tpu/utils/io.py``. The PNG writer and reader need
-nothing beyond the standard library (``zlib`` and ``struct``) and NumPy,
-so a host with neither Pillow nor imageio can save video frames and read
-them back (the assembler's catch-up on resume and the post-pass do).
-Pillow is imported only inside the two functions that need it: to read
-an explicit ``--disk_texture`` file and to JPEG-encode the frames of the
-MJPEG AVI fallback.
+The port of ``bhr_tpu/utils/io.py``. ``save_image`` writes PNGs through
+the native encoder (``native.save_png_rgb8``, level 2) where it built,
+as ``bhr_tpu`` does, and otherwise through the standard library's
+``zlib``. The reader needs nothing beyond the standard library
+(``zlib`` and ``struct``) and NumPy, so a host with neither Pillow nor
+imageio can save video frames and read them back (the assembler's
+catch-up on resume and the post-pass do). Pillow is imported only inside
+the two functions that need it: to read an explicit ``--disk_texture``
+file and to JPEG-encode the frames of the MJPEG AVI fallback.
 """
 
 from __future__ import annotations
@@ -21,8 +23,12 @@ from typing import List, Optional
 
 import numpy as np
 
-# zlib level of the frame PNGs. PNG is lossless, so the level changes a
-# file's size and the time to write it, never a pixel.
+from .. import native
+
+# Deflate levels of the PNGs: the native encoder's (bhr_tpu's) and the
+# standard-library path's. PNG is lossless, so a level changes a file's
+# size and the time to write it, never a pixel.
+NATIVE_PNG_LEVEL = 2
 PNG_LEVEL = 6
 _PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
 
@@ -181,11 +187,18 @@ def load_png_rgb8(path: str) -> np.ndarray:
 
 
 def save_image(image: np.ndarray, path: str) -> None:
-    """Save an (H, W, 3) image (float in [0, 1] or uint8) as PNG."""
+    """Save an (H, W, 3) image (float in [0, 1] or uint8) as PNG: through
+    the native encoder where it built, else ``encode_png_rgb8``. Every
+    writer of a run (threads, a resume, a fleet's processes) goes through
+    here on one host, so they all write the same bytes for a frame."""
     if not path.lower().endswith(".png"):
         raise ValueError(f"save_image writes PNG only, got {path!r}")
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    data = encode_png_rgb8(quantize_frame(np.asarray(image)))
+    img = quantize_frame(np.asarray(image))
+    if native.png_available():
+        native.save_png_rgb8(img, path, level=NATIVE_PNG_LEVEL)
+        return
+    data = encode_png_rgb8(img)
     with open(path, "wb") as f:
         f.write(data)
 
@@ -389,8 +402,6 @@ class IncrementalH264Assembler:
 
     def __init__(self, output_path: str, n_frames: int, fps: int,
                  temp_dir: str, crf: int = 18):
-        from .. import native
-
         self._path = output_path
         self._n = n_frames
         self._fps = fps
@@ -410,8 +421,6 @@ class IncrementalH264Assembler:
 
     def _encode(self, rgb: np.ndarray) -> None:
         if self._writer is None:
-            from .. import native
-
             h, w = rgb.shape[:2]
             if (h % 2) or (w % 2):
                 # Checked before the filesystem is touched: a condition

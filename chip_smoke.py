@@ -171,10 +171,32 @@ exits non-zero without printing a result:
    shade, post: no texture stage), host ms to enqueue and busy share; the
    still in 4 bands (4 ``ray_march_slim`` launches) within 2e-5 of the
    whole frame;
-11. a JSON line describing every instantiation at FHD (kernel, plain
+11. (a) the native PNG encoder (``csrc/fastpng.cpp``): it must build;
+   its deflate backend; phase 5's FHD default frame encoded 5 times at
+   level 2 and 5 times by the standard library's zlib at level 6, the
+   median ms and the bytes of each, both decoded by ``decode_png_rgb8`` to
+   the frame exactly; (b) the FHD V2 and the FHD default videos (24
+   frames each, through ``cli.main``) each rendered twice, in turns, with
+   the native encoder and with the zlib path (``native.png_available``
+   patched to False, so ``save_image`` takes it): frames/s end to end and
+   steady, PNG median ms, the main thread's wait on the writers, 24
+   ``ray_march_slim`` launches a video, the last frames equal; (c)
+   ``bhr_tpu``'s nine extreme scenes (``EXTREME_SCENES``): each 96x64
+   frame through the kernel (one ``ray_march_slim`` or ``ray_march_aa``
+   launch, no plain trace) meets ``test_extreme_configs.py``'s conditions
+   (finite, in [0, 1 + 1e-6], not constant; the fov 1 frame black) and
+   lies within mean 5e-4 of the CPU port's frame, and the kernel against
+   its plain version at 1920x1080 meets the FHD rule of phase 5 (AA with
+   its negative control); (d) every tool of ``bhr_tpu_torch.tools`` at
+   its default size on the card: exit code 0, its PNGs decoded and not
+   black, its launches (``compare_aa``: one ``ray_march_slim`` and one
+   ``ray_march_aa``; ``profile_pipeline``: 14 ``ray_march_slim``, and its
+   stage lines), each with the counts set to 0 just before and read just
+   after;
+12. a JSON line describing every instantiation at FHD (kernel, plain
    version, FP32-operation bound and issue bound times; ``launches`` sums
-   the paths of phases 5, 6c, 6d, 7d, 8, 9 and 10c), then the result line
-   ``{"ok": true, "device": {...}}`` as the last line.
+   the paths of phases 5, 6c, 6d, 7d, 8, 9, 10c and 11), then the result
+   line ``{"ok": true, "device": {...}}`` as the last line.
 
 Imports torch, numpy and bhr_tpu_torch only.
 """
@@ -242,6 +264,23 @@ GOLDEN_VIDEO = dict(GOLDEN, video=True, orbit=True, orbit_degrees=45.0,
 FHD_VIDEOS = (("default", 24, [], "ray_march_slim"),
               ("aa_flare", 8, AA_FLAGS, "ray_march_aa"),
               ("v2", 24, V2_FLAGS["v2"], "ray_march_slim"))
+
+# The extreme but legal scenes of tests/unit/test_extreme_configs.py
+# (copied: that test imports JAX), each on its 96x64 frame with a 256x128
+# sky of 200 stars (seed 5) and a random 24x64 disk (default_rng(2)):
+# tag -> SceneConfig changes from fov 60, pov (6, 0, 0.5), disk 2-3.5.
+EXTREME_SCENES = {
+    "tilt 89": dict(disk_tilt=89.0),
+    "fov 170": dict(fov=170.0),
+    "fov 1": dict(fov=1.0),  # sees only the shadow: an all-black frame
+    "camera r 2.2": dict(pov=(2.2, 0.0, 0.1)),
+    "camera r 40": dict(pov=(40.0, 0.0, 5.0), r_max=50.0),
+    "disk 1.05-1.2": dict(disk_inner_radius=1.05, disk_outer_radius=1.2),
+    "step 1.0": dict(step_size=1.0),
+    "aa strength 2": dict(anti_alias="lod_radius", aa_strength=2.0),
+    "lens flare": dict(lens_flare=True),
+}
+EXTREME_FRAME = (96, 64)
 
 # FP32 operations of csrc/ray_march.cu for the bound of each
 # instantiation: an add, multiply, sqrt, rsqrt or reciprocal counts one,
@@ -410,18 +449,19 @@ def cuda_ms(fn, reps: int = 1):
     return out, start.elapsed_time(end) / reps
 
 
-def camera_tensor(w, h, fov, device="cuda"):
-    """The 14 camera floats of the POV camera on ``device``."""
+def camera_tensor(w, h, fov, device="cuda", pov=POV):
+    """The 14 camera floats of the camera at ``pov`` on ``device``."""
     from bhr_tpu_torch.camera import build_camera
     from bhr_tpu_torch.ops.geodesic_cuda import camera_params
 
-    return torch.as_tensor(camera_params(build_camera(POV, fov, w, h)),
+    return torch.as_tensor(camera_params(build_camera(pov, fov, w, h)),
                            device=device)
 
 
-def trace_pair(name, w, h, fov, tilt, h_base, r_escape, r_inner, r_outer, reps):
+def trace_pair(name, w, h, fov, tilt, h_base, r_escape, r_inner, r_outer, reps,
+               pov=POV):
     """Kernel ``name`` and its plain version on the same camera tensor on
-    the card -> (kernel, plain, kernel ms, plain ms, comparison)."""
+    the card -> (kernel, plain, kernel ms, plain ms)."""
     from bhr_tpu_torch.ops.geodesic import (
         primary_differentials_from_params,
         primary_rays_from_params,
@@ -429,7 +469,7 @@ def trace_pair(name, w, h, fov, tilt, h_base, r_escape, r_inner, r_outer, reps):
     )
     from bhr_tpu_torch.ops.geodesic_cuda import trace_geodesics_cuda
 
-    cam = camera_tensor(w, h, fov)
+    cam = camera_tensor(w, h, fov, pov=pov)
     kw = dict(h_base=h_base, r_escape=r_escape, tilt_deg=tilt, r_inner=r_inner,
               r_outer=r_outer, **VARIANTS[name])
     for _ in range(WARMUP):
@@ -1038,6 +1078,23 @@ def expect_video_launches(counts, name, n, plain_calls, what):
           f"times, expected {name} {n} times and nothing else")
 
 
+def cli_video(argv, reset, launches):
+    """``cli.main(argv)`` of a video, with the counts set to 0 just before
+    (``reset``) and read just after -> (its "Video stats:" line as a
+    dict, the launches)."""
+    import bhr_tpu_torch.cli as cli
+
+    tee = _Tee()
+    reset()
+    with contextlib.redirect_stdout(tee):
+        check(cli.main(argv) == 0, "CLI exit code")
+    launched = dict(launches)
+    lines = [ln for ln in tee.getvalue().splitlines()
+             if ln.startswith("Video stats: ")]
+    check(len(lines) == 1, f"{' '.join(argv)}: no stats line")
+    return json.loads(lines[0][len("Video stats: "):]), launched
+
+
 def video_phase(launches, reset_counts) -> tuple:
     """Phase 7; -> ({kernel: launches of the full-width video paths},
     {tag: the statistics of each full-width video})."""
@@ -1250,15 +1307,7 @@ def video_phase(launches, reset_counts) -> tuple:
             out = os.path.join("output", "torch_video", f"fhd_{tag}.mp4")
             argv = ["--video", "--orbit", "-r", "fhd", "--n_frames", str(n_frames),
                     "--fps", "24", *flags, "-o", out]
-            tee = _Tee()
-            reset()
-            with contextlib.redirect_stdout(tee):
-                check(cli.main(argv) == 0, "CLI exit code")
-            launched = dict(launches)
-            lines = [ln for ln in tee.getvalue().splitlines()
-                     if ln.startswith("Video stats: ")]
-            check(len(lines) == 1, f"FHD video {tag}: no stats line")
-            stats = json.loads(lines[0][len("Video stats: "):])
+            stats, launched = cli_video(argv, reset, launches)
             # (With several cards a short video may be one batch: no
             # steady rate then.)
             steady = ("n/a (one batch)" if stats["steady_fps"] is None
@@ -2036,6 +2085,183 @@ def auto_disk_phase(launches, reset_counts, cache_dir) -> dict:
     return path
 
 
+def png_phase(launches, reset_counts, smi) -> dict:
+    """Phases 11a and 11b: the native PNG encoder against the standard
+    library's zlib on one FHD frame, and the FHD V2 and default videos
+    with each encoder in turns -> the videos' launches."""
+    from bhr_tpu_torch import native
+    from bhr_tpu_torch.modes import video_temp_paths
+    from bhr_tpu_torch.utils import io as tio
+
+    check(native.png_available(), "the native PNG encoder did not build")
+    backend = native.png_backend()
+    frame = tio.load_png_rgb8(os.path.join("output", "torch_fhd_default.png"))
+    check(frame.shape == (1080, 1920, 3) and frame.max() > 128,
+          f"phase 5's FHD frame {frame.shape}")
+    encoded = {}
+    for tag, encode in (
+            (f"native ({backend}) level {tio.NATIVE_PNG_LEVEL}",
+             lambda: native.encode_png_rgb8(frame, level=tio.NATIVE_PNG_LEVEL)),
+            (f"zlib level {tio.PNG_LEVEL}", lambda: tio.encode_png_rgb8(frame))):
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            data = encode()
+            times.append((time.perf_counter() - t0) * 1e3)
+        check(np.array_equal(tio.decode_png_rgb8(data), frame),
+              f"{tag}: the PNG does not decode to the frame")
+        encoded[tag] = (statistics.median(times), len(data))
+    say(f"[png] {smi}: native encoder linked to {backend}; phase 5's FHD default "
+        f"frame encoded 5 times each, medians: " + "; ".join(
+            f"{tag} {ms:.3f} ms, {n} bytes" for tag, (ms, n) in encoded.items())
+        + "; both decode to the frame exactly (decode_png_rgb8)")
+
+    # The same videos with each encoder, in turns; the zlib runs patch
+    # native.png_available, so save_image takes its standard-library path.
+    path_launches = {"ray_march_slim": 0}
+    real = native.png_available
+    for tag, flags, order in (("fhd v2", V2_FLAGS["v2"], ("native", "zlib")),
+                              ("fhd", [], ("zlib", "native"))):
+        stats, last = {}, {}
+        for encoder in order:
+            out = os.path.join("output", "torch_video",
+                               f"png_{tag.replace(' ', '_')}_{encoder}.mp4")
+            argv = ["--video", "--orbit", "-r", "fhd", "--n_frames", "24", "--fps",
+                    "24", *flags, "-o", out]
+            native.png_available = real if encoder == "native" else (lambda: False)
+            try:
+                stats[encoder], launched = cli_video(argv, reset_counts, launches)
+            finally:
+                native.png_available = real
+            others = {k: v for k, v in launched.items() if k != "ray_march_slim" and v}
+            check(launched["ray_march_slim"] == 24 + stats[encoder]["padded"]
+                  and not others and stats[encoder]["frames"] == 24,
+                  f"video {tag} ({encoder}): {launched}, {stats[encoder]}")
+            path_launches["ray_march_slim"] += launched["ray_march_slim"]
+            temp_dir, _ = video_temp_paths(out)
+            last[encoder] = tio.load_png_rgb8(os.path.join(temp_dir, "frame_0023.png"))
+        check(np.array_equal(last["native"], last["zlib"]),
+              f"video {tag}: the encoders' last frames differ")
+        say(f"[video {tag} png] {smi}: --video --orbit -r fhd --n_frames 24 "
+            f"{' '.join(flags)} twice, in turns ({', '.join(order)}): " + "; ".join(
+                f"{enc} {st['fps']:.3f} frames/s end to end, "
+                + ("n/a" if st["steady_fps"] is None else f"{st['steady_fps']:.3f}")
+                + f" steady, PNG median {st['stage_ms']['png']:.3f} ms, main thread "
+                f"waited on the writers {st['writer_wait_s']:.3f} s"
+                for enc, st in ((e, stats[e]) for e in ("native", "zlib")))
+            + "; frame 23 decodes equal")
+    return path_launches
+
+
+def extreme_phase(launches, reset_counts, smi) -> dict:
+    """Phase 11c: the kernel at bhr_tpu's extreme scenes -> the frames'
+    launches."""
+    from bhr_tpu_torch.config import SceneConfig, escape_radius
+    from bhr_tpu_torch.models.skybox import generate_skybox
+    from bhr_tpu_torch.pipeline import Renderer
+
+    sky = generate_skybox(256, 128, seed=5, n_stars=200)
+    disk = np.random.default_rng(2).random((24, 64, 4)).astype(np.float32)
+    w, h = EXTREME_FRAME
+    path_launches = {"ray_march_slim": 0, "ray_march_aa": 0}
+    for tag, changes in EXTREME_SCENES.items():
+        kw = dict(dict(fov=60.0, pov=POV, disk_inner_radius=2.0,
+                       disk_outer_radius=3.5, n_stars=200), **changes)
+        name = "ray_march_aa" if "anti_alias" in kw else "ray_march_slim"
+        frames = {}
+        with counted_plain_traces() as plain_calls:
+            for device in ("cuda", "cpu"):
+                cfg = SceneConfig(width=w, height=h, device=device, **kw).validated()
+                reset_counts()
+                frames[device] = Renderer(cfg, sky, disk).render(cfg.pov, cfg.fov)
+                if device == "cuda":
+                    launched = dict(launches)
+                    expect_launches(launched, name, f"extreme {tag} frame")
+                    check(not plain_calls[0], f"extreme {tag}: the card ran the plain trace")
+                    path_launches[name] += launched[name]
+        img, ref = frames["cuda"], frames["cpu"]
+        diff = np.abs(img.astype(np.float64) - ref.astype(np.float64))
+        black = tag == "fov 1"
+        say(f"[extreme {tag}] {w}x{h} frame through {name} (launches "
+            f"{launched[name]}): finite {bool(np.isfinite(img).all())}, range "
+            f"{img.min():.4g}..{img.max():.6g}, std {img.std():.4e}; vs the CPU "
+            f"port's frame max {diff.max():.3e} mean {diff.mean():.3e}")
+        check(img.shape == (h, w, 3) and np.isfinite(img).all(),
+              f"extreme {tag}: shape or not finite")
+        check(0.0 <= img.min() and img.max() <= 1.0 + 1e-6,
+              f"extreme {tag}: values out of [0, 1]")
+        check(img.std() <= 1e-4 if black else img.std() > 1e-4,
+              f"extreme {tag}: std {img.std()}")
+        # A ray flipped by the kernel's rounding moves a pixel by up to 1
+        # at this size, so the frame's max is printed, its mean checked.
+        check(diff.mean() <= 5e-4, f"extreme {tag}: mean vs the CPU port {diff.mean()}")
+        # The kernel against its plain version at FHD, the same scene.
+        fhd = (1920, 1080, cfg.fov, cfg.disk_tilt, cfg.step_size,
+               escape_radius(cfg.r_max, cfg.pov), cfg.disk_inner_radius,
+               cfg.disk_outer_radius)
+        res = trace_pair(name, *fhd, 3, pov=cfg.pov)
+        check_pair(f"extreme {tag} 1920x1080", name, res, exact=False,
+                   outliers_allowed=True)
+        del res
+    return path_launches
+
+
+def tools_phase(launches, reset_counts, smi) -> dict:
+    """Phase 11d: every tool of ``bhr_tpu_torch.tools`` at its default
+    size on the card -> their launches."""
+    from bhr_tpu_torch.tools import (
+        check_texture,
+        compare_aa,
+        preview_v2,
+        profile_pipeline,
+        rotation_experiments,
+    )
+    from bhr_tpu_torch.utils.io import load_png_rgb8
+
+    out = os.path.join("output", "torch_tools")
+    rotation_pngs = ["tex_roll", "tex_keyframe", "tex_dynamic", "comp_00_temp_base",
+                     "rot_05_arcs", "ab_turbulence"]
+    runs = (
+        ("check_texture", check_texture, ["--out", f"{out}/texture"],
+         [f"{out}/texture_{p}.png" for p in ("polar", "topview", "density")], {}),
+        ("check_texture --dynamic", check_texture, ["--dynamic", "--out", f"{out}/dyn"],
+         [f"{out}/dyn_{p}.png" for p in ("polar", "topview", "density")], {}),
+        ("preview_v2 --structure", preview_v2, ["--structure", "--out", f"{out}/v2"],
+         [f"{out}/v2_{p}.png" for p in ("top", "density", "temperature")], {}),
+        ("compare_aa", compare_aa, ["--out", f"{out}/aa_compare.png"],
+         [f"{out}/aa_compare.png"], {"ray_march_slim": 1, "ray_march_aa": 1}),
+        ("rotation_experiments --verify", rotation_experiments,
+         ["--verify", "--out", f"{out}/rotation"],
+         [f"{out}/rotation/{p}.png" for p in rotation_pngs], {}),
+        ("profile_pipeline", profile_pipeline, [], [], {"ray_march_slim": 14}),
+    )
+    path_launches = {}
+    for tag, tool, args, pngs, expected in runs:
+        tee = _Tee()
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(tee):
+            rc = tool.main(args)
+        wall = time.perf_counter() - t0
+        launched = {k: v for k, v in launches.items() if v}
+        check(rc == 0, f"tool {tag} exited {rc}")
+        check(launched == expected, f"tool {tag} launched {launched}, expected {expected}")
+        shapes = []
+        for png in pngs:
+            img = load_png_rgb8(png)
+            check(img.max() > 0, f"tool {tag}: {png} is black")
+            shapes.append("x".join(map(str, img.shape[1::-1])))
+        say(f"[tools {tag}] {smi}: exit 0 in {wall:.2f} s; " + (
+            f"{len(pngs)} PNGs decoded, not black ({', '.join(shapes)})" if pngs
+            else "no PNG") + f"; launches {launched or 'none'}")
+        if tool is profile_pipeline:
+            for line in tee.getvalue().splitlines():
+                say(f"[tools profile_pipeline] {line}")
+        for k, v in launched.items():
+            path_launches[k] = path_launches.get(k, 0) + v
+    return path_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -2374,7 +2600,12 @@ def main() -> int:
         for name, n in auto_disk_phase(launches, reset_counts, cache_dir).items():
             path_launches[name] += n
 
-    # 11. results
+    # 11. the native PNG encoder, the kernel at the extreme scenes, the tools
+    for phase in (png_phase, extreme_phase, tools_phase):
+        for name, n in phase(launches, reset_counts, smi).items():
+            path_launches[name] += n
+
+    # 12. results
     say(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

@@ -220,7 +220,9 @@ def test_golden_default_scene_is_sane(golden_render):
 
 
 def _read_png_rgb8(path):
-    """Decode an 8-bit RGB, filter-0 PNG with zlib alone."""
+    """Decode an 8-bit RGB PNG whose rows use the None, Sub or Up filter
+    (what the native encoder writes; the zlib path writes None) with zlib
+    and NumPy alone."""
     with open(path, "rb") as f:
         data = f.read()
     assert data[:8] == b"\x89PNG\r\n\x1a\n"
@@ -238,8 +240,18 @@ def _read_png_rgb8(path):
     w, h, depth, color = size[:4]
     assert (depth, color) == (8, 2)
     raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
-    assert (raw[:, 0] == 0).all()
-    return raw[:, 1:].reshape(h, w, 3)
+    assert set(raw[:, 0].tolist()) <= {0, 1, 2}
+    img = np.zeros((h, w, 3), np.uint8)
+    prev = img[0]
+    for y in range(h):
+        row = raw[y, 1:].reshape(w, 3)
+        if raw[y, 0] == 1:  # Sub: each byte adds the one 3 to its left
+            row = np.cumsum(row, axis=0, dtype=np.uint8)
+        elif raw[y, 0] == 2:  # Up: each byte adds the one above
+            row = row + prev
+        img[y] = row
+        prev = img[y]
+    return img
 
 
 def test_cli_writes_png(tmp_path, capsys):
