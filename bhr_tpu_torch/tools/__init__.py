@@ -12,5 +12,16 @@ Each runs as ``python -m bhr_tpu_torch.tools.<name>``, has
   side by side;
 - ``rotation_experiments``: the disk-rotation strategies compared, with
   ``--verify`` asserting the conclusions;
-- ``profile_pipeline``: per-stage ms of the FHD dynamic frame.
+- ``profile_pipeline``: per-stage ms of the FHD dynamic frame;
+
+and the measurement tools of ``bhr_tpu_torch.bench`` (the same flags,
+plus size flags for small runs):
+
+- ``bench_trace``: the ray-march kernel's Mray-steps/s and bound shares;
+- ``bench_resolutions``: the bench frame at sd, hd, fhd and 4k;
+- ``ablate_pipeline``: the bench frame with one stage knocked out;
+- ``ablate_shade``, ``bench_shade_variants``: shade variants on one
+  recorded trace of ``_diag_scene``'s FHD scene;
+- ``cost_shade``: the shade's operations, bytes, launches and what
+  bounds it.
 """

@@ -13,8 +13,8 @@ exits non-zero without printing a result:
    fails the run); each instantiation's loop in the SASS (``cuobjdump``):
    its instructions, the MUFU ones and the FFMA/FADD/FMUL ones, and the
    fewest instructions (MUFU ones) a surviving and a terminating step
-   issue (``parse_sass_loops``); the SMs and their maximum clock, for the
-   issue bounds of phase 5;
+   issue (``bhr_tpu_torch.bench.parse_sass_loops``); the SMs and their
+   maximum clock, for the issue bounds of phase 5;
 3. every instantiation (slim, AA, no disk, and each with step counts) vs
    its plain PyTorch version on the card, at the 128x32 tilt-15 parity
    scene and at the 320x180 golden scene, with the tolerances of
@@ -193,10 +193,20 @@ exits non-zero without printing a result:
    ``ray_march_aa``; ``profile_pipeline``: 14 ``ray_march_slim``, and its
    stage lines), each with the counts set to 0 just before and read just
    after;
-12. a JSON line describing every instantiation at FHD (kernel, plain
+12. ``bhr_tpu_torch.bench``, short, with the counts set to 0 just
+   before each measurement and read just after: ``time_trace`` slim and
+   AA (the bench scene at FHD: kernel ms, Mray-steps/s, the FP32- and
+   issue-bound shares, each in (0, 1.05]), ``time_resolution("sd", 4)``
+   (median and spread of 5 batches), ``time_gather`` (no kernel of the
+   port), each value a finite number and the launches what the bench
+   says it made; the regression gate on synthetic artifacts in a temp
+   directory (the newest round below the current one is read, the
+   current round's and a root-style ``BENCH_r*.json`` are not; a slower
+   headline is flagged, and a retry that raises keeps its flag);
+13. a JSON line describing every instantiation at FHD (kernel, plain
    version, FP32-operation bound and issue bound times; ``launches`` sums
-   the paths of phases 5, 6c, 6d, 7d, 8, 9, 10c and 11), then the result
-   line ``{"ok": true, "device": {...}}`` as the last line.
+   the paths of phases 5, 6c, 6d, 7d, 8, 9, 10c, 11 and 12), then the
+   result line ``{"ok": true, "device": {...}}`` as the last line.
 
 Imports torch, numpy and bhr_tpu_torch only.
 """
@@ -224,21 +234,24 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
-POV = (6.0, 0.0, 0.5)
-GOLDEN = dict(width=320, height=180, pov=POV, fov=60.0, step_size=0.1,
-              r_max=10.0, n_stars=100, disk_inner_radius=2.0,
-              disk_outer_radius=3.5, disk_tilt=15.0, anti_alias="disabled",
-              seed=42)
-# The golden families of tests/e2e_render.py this script renders, and the
-# kernel each launches.
-SCENES = {"default": ({}, "ray_march_slim"),
-          "aa": ({"anti_alias": "lod_radius"}, "ray_march_aa"),
-          "flare": ({"lens_flare": True}, "ray_march_slim")}
-# The V2 volume disk's golden families: every V2 frame launches the slim
-# kernel (hits recorded, no differentials).
-V2_SCENES = {"v2": {"disk_model": "v2"},
-             "v2sci": {"disk_model": "v2", "v2_palette": "scientific",
-                       "v2_structure": True}}
+# The op model of the trace, the golden tables and golden_diff live in
+# bhr_tpu_torch.bench (one place for the bench and this script).
+from bhr_tpu_torch.bench import (  # noqa: E402
+    GOLDEN,
+    GOLDEN_VIDEO,
+    ISSUE_LANES_PER_SM,
+    MUFU_LANES_PER_SM,
+    POV,
+    SCENES,
+    V2_SCENES,
+    bound,
+    device_busy_share,
+    golden_diff,
+    issue_bounds,
+    sass_loop_counts,
+    terminated,
+)
+
 V2_FLAGS = {"v2": ["--disk_model", "v2"],
             "v2sci": ["--disk_model", "v2", "--v2_structure", "--v2_palette",
                       "scientific"]}
@@ -257,10 +270,6 @@ TILES = 4  # row bands of the tile phase
 # host-bound phase ran up to ~18% slower than later ones at FHD.
 WARMUP = 2
 TOL_TILED = 2e-5  # tiled vs whole frame (test_sharded_frames.py's bound)
-# The golden video of tests/e2e_render.py: an 8-frame 45-degree orbit of
-# the golden scene in one batch.
-GOLDEN_VIDEO = dict(GOLDEN, video=True, orbit=True, orbit_degrees=45.0,
-                    n_frames=8, fps=24, frame_shards=1, frames_per_dispatch=8)
 FHD_VIDEOS = (("default", 24, [], "ray_march_slim"),
               ("aa_flare", 8, AA_FLAGS, "ray_march_aa"),
               ("v2", 24, V2_FLAGS["v2"], "ray_march_slim"))
@@ -281,147 +290,6 @@ EXTREME_SCENES = {
     "lens flare": dict(lens_flare=True),
 }
 EXTREME_FRAME = (96, 64)
-
-# FP32 operations of csrc/ray_march.cu for the bound of each
-# instantiation: an add, multiply, sqrt, rsqrt or reciprocal counts one,
-# a fused multiply-add two (its multiply and its add); fmin/fmax and
-# compares are not counted.
-# - per RK4 step: adaptive step 16 (r^2 5, two sqrt, 1/rs multiply,
-#   rs*, q^3 and 1 + 2q^3 4, reciprocal, h 2), four stages 35 (one
-#   rsqrt and 4 multiplies each, r^2 5 for stages 2-4), stage slopes and
-#   positions 66, update 42, r^2 and affine tests 6, plus the disk-plane
-#   test 5 where hits are recorded; AA adds two diff_rk4 of 168 each on
-#   every step that survives (not the terminating one);
-# - per ray: image plane and primary ray 63 (AA: 127 with the two
-#   differential rays), escape direction 10 per escaped ray;
-# - per recorded crossing: 13 (AA: 31 with the differentials' lerp).
-STEP_OPS = {"slim": 170, "aa": 170, "nodisk": 165}
-DIFF_STEP_OPS = {"slim": 0, "aa": 336, "nodisk": 0}
-RAY_OPS = {"slim": 63, "aa": 127, "nodisk": 63}
-ESCAPE_OPS = 10
-HIT_OPS = {"slim": 13, "aa": 31, "nodisk": 0}
-# Bytes written per ray: captured, escaped, escape_dir, hit_count, hits
-# (K=4 x 12 floats), plus steps for the _steps instantiations.
-RAY_BYTES = 1 + 1 + 12 + 4 + 4 * 12 * 4
-# NVIDIA H100 SXM published peaks (dense FP32 outside the tensor cores,
-# counting a fused multiply-add as two operations; HBM3 bandwidth). A
-# square root or reciprocal counts as one operation but takes several
-# instructions, and the kernel's adds and multiplies do not all fuse, so
-# this bound is below the kernel's true least time. The issue bound
-# (the fewest SASS instructions the steps issue, over the SMs' issue
-# rate) is printed beside it.
-PEAK_FP32 = 67e12
-PEAK_BYTES = 3.35e12
-# Issue rates of one Hopper SM per clock: 4 schedulers each issue one
-# warp instruction (32 thread-instructions); the MUFU units (rsqrt, rcp,
-# the seeds of sqrt and divide) serve 16 threads.
-ISSUE_LANES_PER_SM = 4 * 32
-MUFU_LANES_PER_SM = 16
-
-
-def sass_loop_counts(lib_path: str) -> dict:
-    """:func:`parse_sass_loops` of the built library's ``cuobjdump -sass``."""
-    from bhr_tpu_torch import _build
-
-    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
-    return parse_sass_loops(subprocess.run(
-        [tool, "-sass", lib_path], capture_output=True, text=True, timeout=120,
-        check=True).stdout)
-
-
-def parse_sass_loops(sass: str) -> dict:
-    """Each instantiation's ray-march loop in ``cuobjdump -sass`` text,
-    from the loop's head to its back-branch (the backward branch that
-    spans the most code) -> {name: counts}, NOPs not counted:
-
-    - "total", "mufu", "fp32": the loop body's instructions, its MUFU ones
-      and its FFMA/FADD/FMUL ones — code a step rarely runs included;
-    - "step", "step_mufu": the fewest instructions (MUFU instructions) a
-      surviving step issues: the shortest way from the head to the
-      back-branch, which skips the crossing record and takes the fast
-      path of each correctly rounded sqrt and reciprocal. A way through a
-      CALL (the slow path's subroutine) is not taken: it issues the
-      callee too, more than the fast path it replaces;
-    - "last", "last_mufu": the fewest a terminating step issues, to the
-      first branch out of the loop (the capture or escape break).
-    """
-    from bhr_tpu_torch.ops.geodesic_cuda import kernel_name
-
-    counts = {}
-    for block in sass.split("Function : ")[1:]:
-        m = re.match(r"\S*ray_marchILb([01])ELb([01])ELb([01])E", block)
-        if not m:
-            continue
-        # (address, opcode, predicated, branch target or None)
-        labels, code = {}, []
-        for line in block.splitlines():
-            lab = re.match(r"\s*(\.L_x_\d+):", line)
-            ins = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
-            if lab:
-                labels[lab.group(1)] = None
-            elif ins:
-                addr = int(ins.group(1), 16)
-                for k, v in labels.items():
-                    if v is None:
-                        labels[k] = addr
-                pred = re.match(r"@!?U?P\w+\s+", ins.group(2))
-                text = ins.group(2)[pred.end():] if pred else ins.group(2)
-                op = text.split()[0]
-                target = None
-                t = op.startswith("BRA") and re.search(
-                    r"0x([0-9a-f]+)|(\.L_x_\d+)", text[3:])
-                if t:
-                    target = int(t.group(1), 16) if t.group(1) else t.group(2)
-                code.append([addr, op, bool(pred) and pred.group(0)[:3] != "@PT",
-                             target])
-        for ins in code:
-            if isinstance(ins[3], str):
-                ins[3] = labels.get(ins[3])
-        head = tail = None
-        for addr, op, _, target in code:
-            if target is not None and target < addr and (
-                    head is None or addr - target > tail - head):
-                head, tail = target, addr
-        body = [ins for ins in code if head is not None and head <= ins[0] <= tail]
-        ops = [op for _, op, _, _ in body if op != "NOP"]
-
-        def fewest(weight):
-            """Shortest ways from the head over the body's forward edges:
-            (to the back-branch, to the first branch out of the loop)."""
-            index = {ins[0]: i for i, ins in enumerate(body)}
-            inf = float("inf")
-            dist = [inf] * len(body)
-            dist[0] = weight(body[0][1])
-            out = inf
-            for i, (addr, op, pred, target) in enumerate(body):
-                if dist[i] == inf or op.startswith("CALL"):
-                    continue
-                if target is not None and not head <= target <= tail or (
-                        op == "EXIT"):
-                    out = min(out, dist[i])
-                nxt = []
-                if target is not None and target > addr and target in index:
-                    nxt.append(index[target])
-                if pred or op.split(".")[0] not in ("BRA", "EXIT", "RET"):
-                    nxt.append(i + 1)
-                for j in nxt:
-                    if j < len(body):
-                        dist[j] = min(dist[j], dist[i] + weight(body[j][1]))
-            return dist[-1], out
-
-        step, last = fewest(lambda op: op != "NOP")
-        step_mufu, last_mufu = fewest(lambda op: op.startswith("MUFU"))
-        diff, record, steps = (c == "1" for c in m.groups())
-        counts[kernel_name(with_differentials=diff, record_hits=record,
-                           record_step_counts=steps)] = {
-            "total": len(ops),
-            "mufu": sum(op.startswith("MUFU") for op in ops),
-            "fp32": sum(op.split(".")[0] in ("FFMA", "FADD", "FMUL") for op in ops),
-            "step": step, "step_mufu": step_mufu, "last": last,
-            "last_mufu": last_mufu,
-        }
-    return counts
-
 
 def say(msg: str) -> None:
     print(msg, flush=True)
@@ -635,38 +503,6 @@ def counted_plain_traces():
         yield calls
     finally:
         geodesic_cuda.trace_geodesics = real
-
-
-def golden_diff(img, name):
-    """(max, mean) |img - tests/goldens/<name>.npz| in float64."""
-    golden = np.load(os.path.join(ROOT, "tests", "goldens", f"{name}.npz"))["image"]
-    check(img.shape == golden.shape, f"{name}: shape {img.shape} vs {golden.shape}")
-    diff = np.abs(img.astype(np.float64) - golden.astype(np.float64))
-    return diff.max(), diff.mean()
-
-
-def device_busy_share(fn):
-    """(the share of ``fn``'s wall time in which the card ran a kernel or
-    a copy, how many kernels and copies it ran), from torch.profiler's
-    device times (their sum over the wall time: one stream, so they do
-    not overlap); (None, 0) where the profiler reports no device time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    # The kernels' and copies' own rows: an operator's row repeats the
-    # device time of the kernels it launched.
-    on_card = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(getattr(e, "self_device_time_total",
-                          getattr(e, "self_cuda_time_total", 0)) for e in on_card)
-    if busy_us <= 0:
-        return None, 0
-    return busy_us / wall_us, sum(e.count for e in on_card)
 
 
 def static_stage_times(cfg, frames: int = 4):
@@ -899,28 +735,6 @@ def check_band(name, full, w, h, fov, tilt, h_base, r_escape, r_inner, r_outer,
     say(f"[tile-band {w}x{h}] {name}: band kernel {ms:.3f} ms plain {p_ms:.3f} ms "
         f"({rows} of {h} rows)")
     return ms
-
-
-def terminated(trace) -> int:
-    """Rays of ``trace`` that were captured or escaped: each ends on a
-    step that breaks out of the loop."""
-    return int((trace.captured | trace.escaped).sum())
-
-
-def bound(name, steps, trace):
-    """(least ms the card could take, "operations" or "bytes") for the
-    instantiation ``name`` on this run's FHD trace: FP32 operations
-    (STEP_OPS etc., over the measured per-ray ``steps``) over PEAK_FP32,
-    and the bytes written over PEAK_BYTES."""
-    base = name.removeprefix("ray_march_").removesuffix("_steps")
-    n = steps.numel()
-    total = float(steps.sum())
-    ops = (STEP_OPS[base] * total + DIFF_STEP_OPS[base] * (total - terminated(trace))
-           + RAY_OPS[base] * n + ESCAPE_OPS * int(trace.escaped.sum())
-           + HIT_OPS[base] * int(trace.hit_count.sum()))
-    nbytes = 14 * 4 + n * (RAY_BYTES + (4 if name.endswith("_steps") else 0))
-    t_ops, t_bytes = ops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def tile_phase(launches, reset_counts) -> tuple:
@@ -2262,6 +2076,90 @@ def tools_phase(launches, reset_counts, smi) -> dict:
     return path_launches
 
 
+def bench_phase(launches, reset_counts, smi, sass, n_sms, clock_mhz) -> dict:
+    """Phase 12: ``bhr_tpu_torch.bench``'s measurements, short, on the
+    card, and its regression gate -> their launches."""
+    import tempfile
+
+    from bhr_tpu_torch import bench
+
+    path_launches = {}
+
+    def measured(tag, fn, expected):
+        """``fn()`` with the counts set to 0 just before and read just
+        after; ``expected(result)`` is what the bench says it launched."""
+        reset_counts()
+        out = fn()
+        launched = {k: v for k, v in launches.items() if v}
+        check(launched == expected(out),
+              f"bench {tag} launched {launched}, expected {expected(out)}")
+        for k, v in launched.items():
+            path_launches[k] = path_launches.get(k, 0) + v
+        return out
+
+    def numbers(tag, values):
+        for k, v in values.items():
+            check(bench.is_number(v), f"bench {tag}: {k} = {v!r}")
+
+    for aa in (False, True):
+        tag = "trace aa" if aa else "trace"
+        tr = measured(tag, lambda: bench.time_trace(
+            aa, sass=sass, n_sms=n_sms, clock_mhz=clock_mhz), lambda r: r["launches"])
+        say(f"[bench {tag}] {smi}: bench scene 1920x1080 tilt 15, kernel "
+            f"{tr['trace_ms']:.4f} ms, {tr['mray_steps_per_s']:.1f} Mray-steps/s, "
+            f"{tr['steps_per_frame']} ray-steps ({tr['mean_steps_per_ray']:.2f} a ray); "
+            f"FP32-bound share {tr['fp32_bound_share']:.4f}, issue-bound share "
+            f"{tr['issue_bound_share']:.4f}; launches {tr['launches']}")
+        numbers(tag, {k: v for k, v in tr.items() if k != "launches"})
+        for k in ("fp32_bound_share", "issue_bound_share"):
+            check(0.0 < tr[k] <= 1.05, f"bench {tag}: {k} {tr[k]}")
+    sd = measured("sd frame", lambda: bench.time_resolution("sd", 4),
+                  lambda r: {"ray_march_slim": r["frames"]})
+    say(f"[bench sd frame] {smi}: bench scene 640x360, batch 4: median "
+        f"{sd['frame_ms']:.3f} ms a frame over 5 batches (spread "
+        f"{sd['spread'][0]:.3f}-{sd['spread'][1]:.3f}); {sd['frames']} frames, "
+        f"ray_march_slim launches {sd['frames']}")
+    numbers("sd frame", {"frame_ms": sd["frame_ms"], "min": sd["spread"][0],
+                         "max": sd["spread"][1]})
+    ns = measured("gather", bench.time_gather, lambda r: {})
+    say(f"[bench gather] {smi}: tab[idx], 1920x1080 int64 indices into 1,048,576 "
+        f"rows of 4 float32: {ns:.4f} ns an index")
+    numbers("gather", {"ns_per_index": ns})
+
+    # The gate: rounds 1 and 2 before this one (3), the current round's
+    # own artifact and a TPU artifact beside them, which it must not read.
+    with tempfile.TemporaryDirectory() as td:
+        for name, line in (
+                ("BENCH_TORCH_r01.json", {"metric": "fhd_dynamic_frame_ms",
+                                          "value": 100.0, "sd_frame_ms": 30.0}),
+                ("BENCH_TORCH_r02.json", {"metric": "fhd_dynamic_frame_ms",
+                                          "value": 110.0, "sd_frame_ms": 30.0}),
+                ("BENCH_TORCH_r03.json", {"metric": "fhd_dynamic_frame_ms",
+                                          "value": 1.0, "sd_frame_ms": 1.0}),
+                ("BENCH_r09.json", {"metric": "fhd_dynamic_frame_ms", "value": 1.0})):
+            with open(os.path.join(td, name), "w") as f:
+                json.dump(line, f)
+        prev = bench.load_prev_artifact(td, 3)
+        result = {"value": 120.0, "sd_frame_ms": 36.0}
+
+        def rerun(key, fn):  # a re-measure that fails before it reads
+            raise RuntimeError("the device failed")
+
+        bench.regression_check(result, prev)
+        flagged = sorted(result.get("regressions", {}))
+        bench.retry_flagged(result, {"sd_frame_ms": lambda: 30.0}, rerun, prev)
+        say(f"[bench gate] previous round {prev['round']} (of r01, r02, r03 and "
+            f"BENCH_r09 with round 3); flagged {flagged}; after a retry that "
+            f"raises: {sorted(result.get('regressions', {}))}, sd_frame_ms "
+            f"{result['sd_frame_ms']}, retry_failed {result.get('retry_failed')}")
+        check(prev["round"] == 2 and prev["metrics"]["value"] == 110.0,
+              f"bench gate read {prev}")
+        check(flagged == ["sd_frame_ms", "value"]
+              and sorted(result.get("regressions", {})) == flagged
+              and result["sd_frame_ms"] == 36.0, f"bench gate {result}")
+    return path_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -2325,19 +2223,6 @@ def main() -> int:
     say(f"[build] {n_sms} SMs at max SM clock {clock_mhz:.0f} MHz: issue "
         f"{n_sms * ISSUE_LANES_PER_SM * clock_mhz * 1e6:.4e} thread-instructions/s, "
         f"MUFU {n_sms * MUFU_LANES_PER_SM * clock_mhz * 1e6:.4e}/s")
-
-    def issue_bounds(name, ray_steps, terminated):
-        """(issue bound ms, MUFU bound ms): the fewest SASS instructions
-        (MUFU ones) a step issues — a surviving step for ``ray_steps`` -
-        ``terminated``, a terminating one for ``terminated`` — over the
-        SMs' issue (MUFU) rate, every lane of every warp busy."""
-        rate = n_sms * clock_mhz * 1e6 / 1e3  # SM-clocks per ms
-        c = sass[name]
-        survived = ray_steps - terminated
-        return ((c["step"] * survived + c["last"] * terminated)
-                / (ISSUE_LANES_PER_SM * rate),
-                (c["step_mufu"] * survived + c["last_mufu"] * terminated)
-                / (MUFU_LANES_PER_SM * rate))
 
     # 3. kernel vs plain at the small shapes
     for tag, args, reps in (
@@ -2560,10 +2445,10 @@ def main() -> int:
             hit_count=traces[name].hit_count[sel])
         bounds[name] = bound(name, steps[twin], traces[name])
         band_bound = bound(name, steps[twin][sel], band_trace)
-        issue[name] = issue_bounds(name, float(steps[twin].sum()),
-                                   terminated(traces[name]))
-        band_issue = issue_bounds(name, float(steps[twin][sel].sum()),
-                                  terminated(band_trace))
+        issue[name] = issue_bounds(sass[name], float(steps[twin].sum()),
+                                   terminated(traces[name]), n_sms, clock_mhz)
+        band_issue = issue_bounds(sass[name], float(steps[twin][sel].sum()),
+                                  terminated(band_trace), n_sms, clock_mhz)
         say(f"[bound 1920x1080] {name}: {bounds[name][0]:.4f} ms by "
             f"{bounds[name][1]}; kernel {fhd[name][0]:.3f} ms "
             f"({bounds[name][0] / fhd[name][0]:.1%} of the bound's rate); "
@@ -2605,7 +2490,12 @@ def main() -> int:
         for name, n in phase(launches, reset_counts, smi).items():
             path_launches[name] += n
 
-    # 12. results
+    # 12. the bench, short
+    for name, n in bench_phase(launches, reset_counts, smi, sass, n_sms,
+                               clock_mhz).items():
+        path_launches[name] += n
+
+    # 13. results
     say(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

@@ -41,8 +41,8 @@ _GOLDEN = dict(width=320, height=180, pov=(6.0, 0.0, 0.5), fov=60.0,
 
 def test_port_imports_no_jax():
     # Every module of the package, found by walking it (so a new module is
-    # held to the rule without being listed here): none may pull in JAX or
-    # bhr_tpu, and none may import a viewer library (matplotlib, PIL) at
+    # held to the rule without being listed here): none may pull in JAX,
+    # bhr_tpu or the root bench.py and tools/, and none may import a viewer library (matplotlib, PIL) at
     # import time; the viewers import theirs when a window or JPEG is made.
     code = (
         "import importlib, pkgutil, sys\n"
@@ -53,13 +53,16 @@ def test_port_imports_no_jax():
         "    importlib.import_module(name)\n"
         "for name in ('bhr_tpu_torch.ops.random', 'bhr_tpu_torch.utils.cache',\n"
         "             'bhr_tpu_torch.models.disk_v2.preview',\n"
-        "             'bhr_tpu_torch.utils.preview_server'):\n"
+        "             'bhr_tpu_torch.utils.preview_server', 'bhr_tpu_torch.bench',\n"
+        "             'bhr_tpu_torch.tools._diag_scene',\n"
+        "             'bhr_tpu_torch.tools.cost_shade'):\n"
         "    assert name in names, name\n"
         "from bhr_tpu_torch.parallel.mesh import initialize_multihost\n"
         "assert initialize_multihost(None) == 1\n"
         "assert 'matplotlib' not in sys.modules and 'PIL' not in sys.modules\n"
         "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'jaxlib', 'bhr_tpu'))\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'bhr_tpu', 'bench',\n"
+        "                                    'tools'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )

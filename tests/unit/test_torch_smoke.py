@@ -1,4 +1,5 @@
-"""``chip_smoke.parse_sass_loops``: the ray-march loop's instruction
+"""``bhr_tpu_torch.bench.parse_sass_loops`` (which ``chip_smoke.py``
+reads the built library with): the ray-march loop's instruction
 counts, read from ``cuobjdump -sass`` text, on which the kernel's issue
 bound rests.
 
@@ -8,7 +9,7 @@ and slow (CALL) paths of a correctly rounded operation, and a crossing
 block that a step can skip; one branch target is a label.
 """
 
-import chip_smoke
+from bhr_tpu_torch import bench
 
 SASS = """
         Function : _ZN45_GLOBAL__N__0_ray_march_cu_09ray_marchILb0ELb1ELb0EEEvNS_6ParamsE
@@ -34,7 +35,7 @@ SASS = """
 
 
 def test_parse_sass_loops_counts_the_loop_and_its_fewest_instructions():
-    counts = chip_smoke.parse_sass_loops(SASS)
+    counts = bench.parse_sass_loops(SASS)
     assert counts == {"ray_march_slim": {
         # 0x10..0xd0: 13 instructions; MUFU.RSQ; FFMA x4, FADD, FMUL.
         "total": 13, "mufu": 1, "fp32": 6,
