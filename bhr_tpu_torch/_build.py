@@ -10,7 +10,10 @@ lands in ``bhr_tpu_torch/_build/`` under a name keyed by a hash of the
 source, the flags and the attempts, so a changed source or flag rebuilds
 and an unchanged one loads the existing file, whichever attempt built it;
 an existing file that does not load (built on a host with other
-libraries) is built again.
+libraries) is built again. The directory is read through
+``utils.cache.compile_cache_dir()`` at each build: ``BUILD_DIR`` unless
+``utils.cache.disable_compile_cache()`` (``--no_compile_cache``) has
+given the process a private one.
 
 The build runs only from the sources in this package. A missing
 compiler, or a compile error in every attempt, raises with the
@@ -96,21 +99,24 @@ def build_host(name: str, *link_attempts) -> Built:
 
 
 def _build(src: str, find_compiler, flags, link_attempts) -> Built:
+    from .utils.cache import compile_cache_dir
+
+    build_dir = compile_cache_dir()
     name = os.path.splitext(os.path.basename(src))[0]
     with open(src, "rb") as f:
         source = f.read()
     digest = hashlib.sha256(source + " | ".join(
         " ".join((*flags, *attempt)) for attempt in link_attempts).encode()
                             ).hexdigest()
-    out = os.path.join(BUILD_DIR, f"lib{name}_{digest[:16]}.so")
+    out = os.path.join(build_dir, f"lib{name}_{digest[:16]}.so")
     log_path = out + ".log"
     seconds = 0.0
     if not os.path.isfile(out):
         compiler = find_compiler()
-        os.makedirs(BUILD_DIR, exist_ok=True)
+        os.makedirs(build_dir, exist_ok=True)
         # Build to a temporary name and rename, so a concurrent or
         # interrupted build never leaves a half-written library behind.
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_dir)
         os.close(fd)
         t0 = time.perf_counter()
         try:
@@ -135,8 +141,9 @@ def _build(src: str, find_compiler, flags, link_attempts) -> Built:
             if os.path.exists(tmp):
                 os.unlink(tmp)
         seconds = time.perf_counter() - t0
-        print(f"built {os.path.relpath(out, _PKG_DIR)} in {seconds:.2f} s "
-              "(set-up)")
+        shown = (os.path.relpath(out, _PKG_DIR) if build_dir == BUILD_DIR
+                 else out)
+        print(f"built {shown} in {seconds:.2f} s (set-up)")
     try:
         lib = ctypes.CDLL(out)
     except OSError:

@@ -17,7 +17,12 @@ process renders on the devices visible to it. ``--disk_texture auto``
 renders a still with the static procedural disk, generated once per
 radii, seed, texture size and ``--disk_generation_scale`` and then
 loaded from ``output/.disk_texture_cache/`` (``utils/cache.py``;
-``--force_regenerate_disk_texture`` makes it anew).
+``--force_regenerate_disk_texture`` makes it anew). ``--debug_nans``
+raises ``FloatingPointError`` at the first stage whose outputs hold a
+NaN (``utils/nans.py``); ``--no_compile_cache`` builds the ``csrc/``
+libraries afresh into a temporary directory instead of
+``bhr_tpu_torch/_build/`` (``utils/cache.py``). Every command line of
+``bhr_tpu``'s CLI parses here.
 
 Usage:
     python -m bhr_tpu_torch.cli --pov 6 0 0.5 --fov 90 -r fhd -o out/frame.png
@@ -170,7 +175,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--keyframes_count", type=int, default=10,
                    help="[deprecated] ignored")
     p.add_argument("--ignore_taichi_cache", action="store_true",
-                   help="[deprecated] ignored")
+                   help="[deprecated] Taichi-specific; the analogue here "
+                        "is --no_compile_cache")
     p.add_argument("--coordinator_address", type=str, default=None,
                    help="multi-host rendering: host:port where process 0 "
                         "listens (run one process per host, or per card; "
@@ -184,6 +190,21 @@ def build_parser() -> argparse.ArgumentParser:
                    help="multi-host: this process's rank "
                         "(with --coordinator_address)")
     p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--debug_nans", action="store_true",
+                   help="trap NaN: raise FloatingPointError at the first "
+                        "stage of a frame (skybox, mips, trace, shade, "
+                        "post, ...) whose outputs hold a NaN, the CUDA "
+                        "kernel's included (as jax_debug_nans; Inf is not "
+                        "trapped)")
+    p.add_argument("--compile_cache", action="store_true",
+                   help="[deprecated] the cache is on by default; "
+                        "disable with --no_compile_cache")
+    p.add_argument("--no_compile_cache", action="store_true",
+                   help="build the CUDA kernels and host libraries of "
+                        "csrc/ afresh into a temporary directory, removed "
+                        "at exit, instead of loading them from the "
+                        "persistent build cache (bhr_tpu_torch/_build/, "
+                        "on by default)")
     return p
 
 
@@ -243,18 +264,33 @@ def main(argv=None) -> int:
         parser.error("--coordinator_address requires --num_processes and "
                      "--process_id")
     config = config_from_args(args)
-    if args.coordinator_address is None:
-        return _run(config, args)
+    # The trap and the build cache are set before anything is built or
+    # rendered, in every process of a fleet, and restored on return.
+    from .utils.cache import (
+        compile_cache_dir,
+        disable_compile_cache,
+        enable_compile_cache,
+    )
+    from .utils.nans import debug_nans, debug_nans_enabled
 
-    from .parallel.mesh import initialize_multihost, shutdown_multihost
-
-    initialize_multihost(args.coordinator_address, args.num_processes,
-                         args.process_id)
+    build_dir = compile_cache_dir()
+    if args.no_compile_cache:
+        disable_compile_cache()
     try:
-        _check_fleet_mode(parser, config)
-        return _run(config, args)
+        with debug_nans(args.debug_nans or debug_nans_enabled()):
+            if args.coordinator_address is None:
+                return _run(config, args)
+            from .parallel.mesh import initialize_multihost, shutdown_multihost
+
+            initialize_multihost(args.coordinator_address, args.num_processes,
+                                 args.process_id)
+            try:
+                _check_fleet_mode(parser, config)
+                return _run(config, args)
+            finally:
+                shutdown_multihost()
     finally:
-        shutdown_multihost()
+        enable_compile_cache(build_dir)
 
 
 def _check_fleet_mode(parser, config: SceneConfig) -> None:

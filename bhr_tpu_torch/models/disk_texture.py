@@ -66,6 +66,7 @@ from ..ops.random import (
 )
 from ..ops.shading import blackbody_rgb, keplerian_omega
 from ..utils.io import compute_edge_alpha
+from ..utils.nans import check_nans
 
 _TWO_PI = 2.0 * math.pi
 
@@ -761,4 +762,9 @@ def generate_disk_texture(
         enable_rt=enable_rt, color_temp=color_temp,
         generation_scale=generation_scale, device=device,
     )
-    return compose_from_state(state, 0.0)
+    tex = compose_from_state(state, 0.0)
+    # The NaN trap's stage (``utils/nans.py``): bhr_tpu's generator ends
+    # in the jitted compose of this state.
+    check_nans("static_texture", tex, state.comp, state.density_p98,
+               state.struct_scale, state.row_stats)
+    return tex

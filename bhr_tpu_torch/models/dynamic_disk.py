@@ -21,6 +21,7 @@ from ..constants import DISK_COLOR_TEMPERATURE
 from ..ops.background import generate_background_components
 from ..ops.stats import approx_quantile, approx_quantile_rows
 from ..utils.io import compute_edge_alpha
+from ..utils.nans import check_nans
 from .disk_texture import (
     compose_from_components,
     density_from_comp,
@@ -44,11 +45,12 @@ def assemble_comp(bg: torch.Tensor, staging: torch.Tensor) -> torch.Tensor:
     return torch.cat([bg[0:5], staging, bg[5:7]], dim=0)
 
 
-def _recompute_stats(comp, edge, enable_rt: bool = True):
+def _recompute_stats(comp, edge, enable_rt: bool = True, stage_prefix: str = ""):
     """Normalization stats from the live comp field, with temp-base
     floors so sparse entity rows don't over-clamp the background
     (reference recompute_interactive_stats, render.py:3655-3712).
-    Quantiles are the histogram approximation of ops/stats.py."""
+    Quantiles are the histogram approximation of ops/stats.py. The NaN
+    trap checks the stats as stage ``stage_prefix + "disk_stats"``."""
     density = density_from_comp(comp, edge, enable_rt)
     density_p98 = torch.clamp(approx_quantile(density, 0.98), min=0.01)
 
@@ -68,7 +70,9 @@ def _recompute_stats(comp, edge, enable_rt: bool = True):
     tb_max = torch.amax(comp[0], dim=1)
     struct_max = torch.maximum(struct_max, tb_max)
     struct_p70 = torch.maximum(struct_p70, tb_max * 0.8)
-    return density_p98, struct_scale, torch.stack([struct_max, struct_p70], dim=1)
+    stats = density_p98, struct_scale, torch.stack([struct_max, struct_p70], dim=1)
+    check_nans(stage_prefix + "disk_stats", stats)
+    return stats
 
 
 # Solo-component debug pairs (density slice <-> its temperature slice),
@@ -97,7 +101,7 @@ def frame_texture(fil, hs, rt, omega_rows, edge, t: float, *, n_r: int,
                   n_phi: int, az_freq: float, az_shear: float, r_inner: float,
                   r_outer: float, generation_scale: int, color_temp: float,
                   enable_rt: bool = True, stats=None, background=None,
-                  solo_idx: int = -1):
+                  solo_idx: int = -1, stage_prefix: str = ""):
     """One frame's disk texture from packed entity rows, as tensors on
     one device: ``fil`` (MF, 8), ``hs`` (MH, 8), ``rt`` (MR, 8) float32
     (``pack_filaments`` / ``pack_timer_entities``), the per-row
@@ -115,6 +119,11 @@ def frame_texture(fil, hs, rt, omega_rows, edge, t: float, *, n_r: int,
     is masked by :func:`solo_comp` before the stats (``stats=None`` then
     normalizes the view with its own) and the compose.
 
+    The NaN trap (``utils/nans.py``) checks the texture and the field as
+    stage ``stage_prefix + "disk_texture"`` and recomputed stats as
+    ``stage_prefix + "disk_stats"`` (the video engine's prefix is
+    ``"video/"``).
+
     Returns ((n_r, n_phi, 4) RGBA texture, the whole (13, n_r, n_phi)
     component field (never the masked one), the stats used).
     """
@@ -131,11 +140,12 @@ def frame_texture(fil, hs, rt, omega_rows, edge, t: float, *, n_r: int,
     comp = assemble_comp(bg, staging)
     shown = solo_comp(comp, solo_idx) if solo_idx >= 0 else comp
     if stats is None:
-        stats = _recompute_stats(shown, edge, enable_rt)
+        stats = _recompute_stats(shown, edge, enable_rt, stage_prefix)
     tex = compose_from_components(
         shown, edge, *stats, enable_rt,
         torch.tensor(color_temp, dtype=torch.float32, device=device),
     )
+    check_nans(stage_prefix + "disk_texture", tex, comp)
     return tex, comp, stats
 
 

@@ -57,7 +57,10 @@ _lib = None
 
 
 def _kernel_lib():
-    """The loaded ray-march library with its C signatures declared."""
+    """The loaded ray-march library with its C signatures declared. It is
+    built (or loaded from the build cache) at the first call and kept for
+    the process: a later switch of the build cache
+    (``utils.cache.disable_compile_cache``) does not rebuild it."""
     global _lib
     if _lib is None:
         lib = _build.build("ray_march").lib

@@ -14,6 +14,13 @@ device by device: in each step every shard's trace is launched before
 any shard is shaded, because shading reads ``max(hit_count)`` on the
 host, which waits for that trace, and would otherwise keep the next
 device's trace from being enqueued.
+
+With the NaN trap on (``utils/nans.py``) each row band's trace and shade
+check their outputs as stages ``band<k>/trace[<instantiation>]`` and
+``band<k>/shade`` (``band<k>/shade_v2``), k the band's index;
+``render_image_tiled`` adds the whole frame's ``skybox``, ``mips`` and
+``post`` (and the lifecycle texture's ``disk_texture`` and
+``disk_stats``).
 """
 
 from __future__ import annotations
@@ -25,7 +32,7 @@ from ..camera import build_camera, orbit_camera_position
 from ..config import SceneConfig, escape_radius, torch_device
 from ..constants import MAX_DISK_CROSSINGS
 from ..ops.geodesic import CAM_PARAMS
-from ..ops.geodesic_cuda import camera_params, trace_geodesics_cuda
+from ..ops.geodesic_cuda import camera_params, kernel_name, trace_geodesics_cuda
 from ..ops.sampling import build_mipmaps
 from ..pipeline import (
     MIP_LEVELS,
@@ -34,6 +41,7 @@ from ..pipeline import (
     shade_frame_v2,
     v2_shade_args,
 )
+from ..utils.nans import check_nans
 from .mesh import FrameMesh, cuda_devices, make_frame_mesh
 
 
@@ -105,12 +113,16 @@ def build_sharded_frame_renderer(mesh: FrameMesh, config: SceneConfig,
     )
     is_v2 = config.disk_model == "v2"
     v2_args = v2_shade_args(config) if is_v2 else None
+    trace_stage = "trace[{}]".format(kernel_name(
+        with_differentials=use_diff, record_hits=has_disk,
+        record_step_counts=False))
+    shade_stage = "shade_v2" if is_v2 else "shade"
 
     def replicas(x) -> dict:
         x = torch.as_tensor(x, dtype=torch.float32).contiguous()
         return {d: x.to(d) for d in distinct}
 
-    def shade(trace, skybox, mips, cam, t_offset) -> torch.Tensor:
+    def shade(trace, skybox, mips, cam, t_offset, tile) -> torch.Tensor:
         if is_v2:
             bg, disk_rgb, _ = shade_frame_v2(
                 trace, skybox, cam[0:3], t_offset=t_offset, **v2_args)
@@ -126,8 +138,11 @@ def build_sharded_frame_renderer(mesh: FrameMesh, config: SceneConfig,
             )
         shape = (rows, width, 3)
         if return_layers:
-            return torch.stack([bg.reshape(shape), disk_rgb.reshape(shape)])
-        return torch.clamp(bg + disk_rgb, 0.0, 1.0).reshape(shape)
+            band = torch.stack([bg.reshape(shape), disk_rgb.reshape(shape)])
+        else:
+            band = torch.clamp(bg + disk_rgb, 0.0, 1.0).reshape(shape)
+        check_nans(f"band{tile}/{shade_stage}", band)
+        return band
 
     def render(skybox, disk_mips, cam_pack, t_offsets, on_stage=None):
         if disk_mips is None and has_disk and not is_v2:
@@ -164,10 +179,12 @@ def build_sharded_frame_renderer(mesh: FrameMesh, config: SceneConfig,
                       for t, dev in enumerate(row)]
             traces = [trace_geodesics_cuda(cams[dev][f], t * rows, **trace_kw)
                       for f, t, dev in shards]
+            for trace, (_, t, _) in zip(traces, shards):
+                check_nans(f"band{t}/{trace_stage}", trace)
             mark("trace")
             bands = [shade(trace, skyboxes[dev], mips[dev], cams[dev][f],
-                           float(t_offsets[f]))
-                     for trace, (f, _, dev) in zip(traces, shards)]
+                           float(t_offsets[f]), t)
+                     for trace, (f, t, dev) in zip(traces, shards)]
             del traces
             mark("shade")
             for i in range(0, len(bands), n_tile):
@@ -219,6 +236,8 @@ def render_image_tiled(config: SceneConfig, devices=None,
             f"tile_shards={n_tile} but only {len(devices)} devices given")
     width, height = config.image_size
     skybox, disk_tex, dynamic = _scene_assets(config, devices[0])
+    skybox = torch.as_tensor(np.asarray(skybox, np.float32), device=devices[0])
+    check_nans("skybox", skybox)
     mesh = make_frame_mesh(1, n_tile, devices=devices[:n_tile])
     render = build_sharded_frame_renderer(
         mesh, config, width, height, 1,
@@ -233,8 +252,10 @@ def render_image_tiled(config: SceneConfig, devices=None,
         mips = build_mipmaps(
             torch.as_tensor(disk_tex, dtype=torch.float32, device=devices[0]),
             levels=MIP_LEVELS)
+        check_nans("mips", mips)
         mark("disk_texture")
     layers = render(skybox, mips, cam_pack, np.zeros(1, np.float32), on_stage)
     final = post_process(layers[0, 0], layers[0, 1], True, config.lens_flare)
+    check_nans("post", final)
     mark("post")
     return final.cpu().numpy()

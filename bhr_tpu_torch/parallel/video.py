@@ -55,6 +55,15 @@ slots in rank order, position p of a batch belongs to slot p % G of the
 G slots, and a process renders and writes the frames of its own slots
 only. Nothing but a bool mask and barriers crosses between processes;
 the output directory is shared. See ``render_video_sharded``.
+
+With the NaN trap on (``utils/nans.py``) the stages of a frame check
+their outputs with the prefix ``video/``: ``video/background`` (a
+device's pass over a batch), ``video/disk_texture``, ``video/disk_stats``,
+``video/mips`` (with AA), ``video/trace[<instantiation>]``,
+``video/shade`` (``video/shade_v2``) and ``video/post`` (the frame
+before it is quantized to uint8); ``render_video_sharded`` adds
+``video/skybox``. The interactive session's frame runs here and checks
+the same stages.
 """
 
 from __future__ import annotations
@@ -92,7 +101,7 @@ from ..models.lifecycle import (
 )
 from ..models.skybox import load_or_generate_skybox
 from ..ops.background import generate_background_components
-from ..ops.geodesic_cuda import trace_geodesics_cuda
+from ..ops.geodesic_cuda import kernel_name, trace_geodesics_cuda
 from ..ops.sampling import build_mipmaps
 from ..pipeline import (
     MIP_LEVELS,
@@ -107,6 +116,7 @@ from ..utils.io import (
     compute_edge_alpha,
     write_json_atomic,
 )
+from ..utils.nans import check_nans
 from .frames import cameras_for_orbit, pack_cameras
 from .mesh import (
     FrameMesh,
@@ -231,6 +241,9 @@ def build_sharded_video_renderer(
         omega_rows = replicate(mesh, omega_np)
         edge = replicate(mesh, compute_edge_alpha(n_r))
     shape = (height, width, 3)
+    trace_stage = "video/trace[{}]".format(kernel_name(
+        with_differentials=use_diff, record_hits=True,
+        record_step_counts=False))
 
     def start_frame(dev, cam, t, entities, background, mark):
         """Texture, mips and trace of one frame (a V2 frame: the trace
@@ -244,10 +257,13 @@ def build_sharded_video_renderer(
                 r_inner=r_inner, r_outer=r_outer,
                 generation_scale=generation_scale,
                 color_temp=DISK_COLOR_TEMPERATURE, background=background,
-                solo_idx=solo_idx,
+                solo_idx=solo_idx, stage_prefix="video/",
             )
-            mips = (build_mipmaps(tex, levels=MIP_LEVELS) if use_diff
-                    else tex[None])
+            if use_diff:
+                mips = build_mipmaps(tex, levels=MIP_LEVELS)
+                check_nans("video/mips", mips)
+            else:
+                mips = tex[None]
             mark("texture")
         trace = trace_geodesics_cuda(
             cam, width=width, height=height,
@@ -256,6 +272,7 @@ def build_sharded_video_renderer(
             with_differentials=use_diff, max_crossings=MAX_DISK_CROSSINGS,
             record_hits=True,
         )
+        check_nans(trace_stage, trace)
         mark("trace")
         return mips, trace
 
@@ -265,6 +282,7 @@ def build_sharded_video_renderer(
             # The structure pattern advects with the frame's time.
             bg, disk, _ = shade_frame_v2(
                 trace, skybox, cam[0:3], t_offset=t, **v2_args)
+            check_nans("video/shade_v2", bg, disk)
         else:
             # The lifecycle texture carries its own rotation: t_offset 0.
             bg, disk, _ = shade_frame(
@@ -273,9 +291,11 @@ def build_sharded_video_renderer(
                 tilt_deg=float(cfg.disk_tilt), t_offset=0.0,
                 use_lod=use_diff, aa_strength=float(cfg.aa_strength),
             )
+            check_nans("video/shade", bg, disk)
         mark("shade")
         final = post_process(bg.reshape(shape), disk.reshape(shape),
                              use_bloom, cfg.lens_flare)
+        check_nans("video/post", final)
         # uint8 on the device: a quarter of the bytes to fetch, and what
         # the PNG wants; round half to even, as bhr_tpu's jnp.round.
         out = torch.round(final * 255.0).to(torch.uint8)
@@ -311,6 +331,7 @@ def build_sharded_video_renderer(
             backgrounds.append(generate_background_components(
                 n_r, n_phi, az_freq, az_shear, r_inner, r_outer, t_np[i::n],
                 generation_scale=generation_scale, device=dev))
+            check_nans("video/background", backgrounds[-1])
             if on_stage:
                 on_stage("background", None, dev)
         frames = [None] * n_frames
@@ -610,6 +631,7 @@ def render_video_sharded(config: SceneConfig, devices=None) -> dict:
     skybox_np, _, _ = load_or_generate_skybox(
         config.texture, 2048, 1024, config.n_stars, seed=config.skybox_seed)
     skybox = replicate(mesh, skybox_np)  # once per call, not per batch
+    check_nans("video/skybox", *skybox.values())
 
     # V2 renders by volume integration: no lifecycle system to replay,
     # every frame is a function of (camera, t).

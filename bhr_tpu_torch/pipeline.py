@@ -14,6 +14,12 @@ recorded hit (``models/disk_v2``). PyTorch runs eagerly, so the
 ``Renderer`` holds the device assets (skybox, disk mip pyramid) and
 calls each stage in turn.
 
+With the NaN trap on (``utils/nans.py``, ``--debug_nans``) each stage of
+the ``Renderer`` checks its outputs where ``bhr_tpu``'s are the outputs
+of a ``jax.jit``: ``skybox`` (the upload), ``mips``,
+``trace[<kernel instantiation>]`` (the kernel's outputs on CUDA, its
+plain version's on the CPU), ``shade`` or ``shade_v2``, and ``post``.
+
 ``bhr_tpu``'s ghost-slot crop window is left out of the texture path on
 purpose: it only cuts gather counts and is exact by construction, so the
 masked pass over all slots gives the same image. The V2 path has the
@@ -34,10 +40,11 @@ from .config import SceneConfig, escape_radius, torch_device
 from .constants import DISK_ALPHA_GAIN, DISK_COLOR_TEMPERATURE, MAX_DISK_CROSSINGS
 from .ops import geodesic
 from .ops.bloom import apply_bloom
-from .ops.geodesic_cuda import camera_params, trace_geodesics_cuda
+from .ops.geodesic_cuda import camera_params, kernel_name, trace_geodesics_cuda
 from .ops.lens_flare import apply_lens_flare
 from .ops.sampling import build_mipmaps, sample_disk, sample_disk_mip, sample_skybox
 from .ops.shading import apply_g_factor, pow_const
+from .utils.nans import check_nans
 
 
 # Mip levels of the disk texture's pyramid (level 0 included).
@@ -357,6 +364,7 @@ class Renderer:
         self.width, self.height = config.image_size
         self.skybox = torch.as_tensor(np.asarray(skybox, np.float32),
                                       device=self.device)
+        check_nans("skybox", self.skybox)
         self.mip_levels = mip_levels
         self.num_mip_levels = 1
         self.disk_mips: Optional[torch.Tensor] = None
@@ -369,6 +377,7 @@ class Renderer:
         """Upload a new (n_r, n_phi, 4) texture and rebuild the mip pyramid."""
         tex = torch.as_tensor(tex, dtype=torch.float32, device=self.device)
         self.disk_mips = build_mipmaps(tex, levels=self.mip_levels)
+        check_nans("mips", self.disk_mips)
         self.num_mip_levels = int(self.disk_mips.shape[0])
 
     # -- stages ------------------------------------------------------------
@@ -388,18 +397,22 @@ class Renderer:
         """
         cfg = self.config
         cam = torch.as_tensor(camera_params(camera), device=self.device)
-        return trace_geodesics_cuda(
+        variant = dict(with_differentials=use_diff,
+                       record_hits=(self.disk_mips is not None
+                                    or cfg.disk_model == "v2"))
+        trace = trace_geodesics_cuda(
             cam, width=self.width, height=self.height,
             h_base=float(cfg.step_size),
             r_escape=float(r_escape),
             tilt_deg=float(cfg.disk_tilt),
             r_inner=float(cfg.disk_inner_radius),
             r_outer=float(cfg.disk_outer_radius),
-            with_differentials=use_diff,
             max_crossings=MAX_DISK_CROSSINGS,
-            record_hits=(self.disk_mips is not None
-                         or cfg.disk_model == "v2"),
+            **variant,
         )
+        check_nans(f"trace[{kernel_name(**variant, record_step_counts=False)}]",
+                   trace)
+        return trace
 
     def shade(self, trace: geodesic.TraceResult, camera: Camera, frame: int,
               use_diff: bool) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -413,6 +426,7 @@ class Renderer:
             bg, disk_rgb, _ = shade_frame_v2(
                 trace, self.skybox, cam_pos, t_offset=t_offset,
                 **v2_shade_args(cfg))
+            check_nans("shade_v2", bg, disk_rgb)
             return bg, disk_rgb
         bg, disk_rgb, _ = shade_frame(
             trace, self.skybox, self.disk_mips, cam_pos,
@@ -423,6 +437,7 @@ class Renderer:
             use_lod=use_diff,
             aa_strength=float(cfg.aa_strength),
         )
+        check_nans("shade", bg, disk_rgb)
         return bg, disk_rgb
 
     def post(self, bg: torch.Tensor, disk_rgb: torch.Tensor, use_bloom: bool,
@@ -432,7 +447,10 @@ class Renderer:
         shape = (self.height, self.width, 3)
         bg_img = bg.reshape(shape)
         disk_img = disk_rgb.reshape(shape)
-        return post_process(bg_img, disk_img, use_bloom, use_flare), bg_img, disk_img
+        final = post_process(bg_img, disk_img, use_bloom, use_flare)
+        # (bg_img and disk_img are the shade's outputs, checked there.)
+        check_nans("post", final)
+        return final, bg_img, disk_img
 
     def frame_escape_radius(self, cam_pos) -> float:
         """The escape radius a frame from ``cam_pos`` is traced with: the

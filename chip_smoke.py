@@ -203,10 +203,33 @@ exits non-zero without printing a result:
    directory (the newest round below the current one is read, the
    current round's and a root-style ``BENCH_r*.json`` are not; a slower
    headline is flagged, and a retry that raises keeps its flag);
-13. a JSON line describing every instantiation at FHD (kernel, plain
+13. the NaN trap of ``--debug_nans`` and the build cache (``[nans ...]``
+   lines): (a) with the trap off and on in turns (off, on, on, off), the
+   FHD CLI-default still (slim kernel), the FHD AA + flare still (AA
+   kernel) and the FHD V2 still (each a frame of ``modes.render_image``'s
+   renderer, its set-up outside the timed frame), one 4-frame batch of
+   the FHD orbit video and one FHD session step: all four outputs
+   bit-equal, no trap fired, the launches counted from 0 around each
+   run, the host time to a synchronise with the trap on and off and the
+   checks a frame, beside the card's name and power limit; (b) negative
+   controls that must raise ``FloatingPointError`` naming their stage: a
+   NaN skybox in a renderer made before the trap was on (``shade``), a
+   NaN disk texture (``mips``), and the ``ray_march_slim`` kernel's
+   outputs at 320x180 with one value made NaN after the launch
+   (``trace[ray_march_slim]``); a NaN camera position there must leave
+   the trap quiet: the kernel writes no NaN for it (every ray neither
+   captured nor escaped, no hit), as its plain version does; (c) ``python -m bhr_tpu_torch.cli
+   --no_compile_cache --debug_nans --width 320 --height 180`` in a
+   process of its own exits 0 and builds ``ray_march`` afresh (its nvcc
+   seconds) into a private directory that is gone after it, with
+   ``bhr_tpu_torch/_build/`` holding the same files with the same
+   mtimes; (d) ``bhr_tpu``'s three flags (``--debug_nans
+   --compile_cache --no_compile_cache``) on a 4-frame ``--video
+   --orbit`` exit 0 the same way;
+14. a JSON line describing every instantiation at FHD (kernel, plain
    version, FP32-operation bound and issue bound times; ``launches`` sums
-   the paths of phases 5, 6c, 6d, 7d, 8, 9, 10c, 11 and 12), then the
-   result line ``{"ok": true, "device": {...}}`` as the last line.
+   the paths of phases 5, 6c, 6d, 7d, 8, 9, 10c, 11, 12 and 13a), then
+   the result line ``{"ok": true, "device": {...}}`` as the last line.
 
 Imports torch, numpy and bhr_tpu_torch only.
 """
@@ -270,6 +293,7 @@ TILES = 4  # row bands of the tile phase
 # host-bound phase ran up to ~18% slower than later ones at FHD.
 WARMUP = 2
 TOL_TILED = 2e-5  # tiled vs whole frame (test_sharded_frames.py's bound)
+TRAP_TURNS = 3  # (off, on, on, off) turns of each path of phase 13a
 FHD_VIDEOS = (("default", 24, [], "ray_march_slim"),
               ("aa_flare", 8, AA_FLAGS, "ray_march_aa"),
               ("v2", 24, V2_FLAGS["v2"], "ray_march_slim"))
@@ -2160,6 +2184,260 @@ def bench_phase(launches, reset_counts, smi, sass, n_sms, clock_mhz) -> dict:
     return path_launches
 
 
+def nan_trap_phase(launches, reset_counts, smi) -> dict:
+    """Phase 13: the NaN trap of ``--debug_nans`` (``utils/nans.py``) and
+    the build cache's ``--no_compile_cache`` -> the launches of the
+    full-width paths driven with the trap on and off."""
+    import dataclasses
+    import tempfile
+
+    import bhr_tpu_torch.cli as cli
+    import bhr_tpu_torch.pipeline as pipeline
+    from bhr_tpu_torch import _build
+    from bhr_tpu_torch.config import (
+        SceneConfig,
+        compute_disk_texture_resolution,
+        escape_radius,
+    )
+    from bhr_tpu_torch.interactive import InteractiveSession
+    from bhr_tpu_torch.models.dynamic_disk import DynamicDiskSystem
+    from bhr_tpu_torch.models.skybox import load_or_generate_skybox
+    from bhr_tpu_torch.modes import _make_renderer
+    from bhr_tpu_torch.parallel.mesh import make_frame_mesh
+    from bhr_tpu_torch.parallel.video import (
+        pack_frame_params,
+        render_video_frames_sharded,
+    )
+    from bhr_tpu_torch.pipeline import Renderer
+    from bhr_tpu_torch.utils import nans
+
+    def parse(flags):
+        return cli.config_from_args(cli.build_parser().parse_args(["-r", "fhd", *flags]))
+
+    path_launches = {}
+    checks = []
+    real_count = nans._count_nans
+
+    def counted(tensors):
+        checks.append(len(tensors))
+        return real_count(tensors)
+
+    # 13a. one warm-up run with the trap off, then TRAP_TURNS turns of
+    # (off, on, on, off): every output bit-equal, no trap fired; the
+    # launches counted from 0 around each run.
+    def off_and_on(tag, kernel, frames, make, run, equal):
+        outs, ms, n_checks = [], {False: [], True: []}, {False: [], True: []}
+        for i, on in enumerate((False, *(False, True, True, False) * TRAP_TURNS)):
+            with nans.debug_nans(on):
+                state = make()
+                checks.clear()
+                reset_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs.append(run(state))
+                torch.cuda.synchronize()
+                if i:  # (not the warm-up)
+                    ms[on].append((time.perf_counter() - t0) * 1e3)
+                    n_checks[on].append(len(checks))
+                launched = {k: v for k, v in launches.items() if v}
+            check(launched == {kernel: frames},
+                  f"[nans {tag}] launched {launched}, expected {kernel} {frames}")
+            path_launches[kernel] = path_launches.get(kernel, 0) + frames
+            del state
+        same = all(equal(outs[0], o) for o in outs[1:])
+        med = {on: statistics.median(v) for on, v in ms.items()}
+        say(f"[nans {tag}] {smi}: median ms of {len(ms[False])} runs (host clock "
+            f"to a synchronise, in turns off-on-on-off): trap off {med[False]:.3f} "
+            f"[{min(ms[False]):.3f}-{max(ms[False]):.3f}], on {med[True]:.3f} "
+            f"[{min(ms[True]):.3f}-{max(ms[True]):.3f}], on - off "
+            f"{med[True] - med[False]:+.3f} ms; {n_checks[True][0] / frames:.2f} "
+            f"checks a frame on, {max(n_checks[False])} off; all {len(outs)} "
+            f"outputs bit-equal {same}; {kernel} launches {frames} a run")
+        check(same, f"[nans {tag}] trap on and off differ")
+        check(max(n_checks[False]) == 0 and min(n_checks[True]) > 0,
+              f"[nans {tag}] checks {n_checks}")
+
+    def images_equal(a, b):
+        return a.shape == b.shape and np.array_equal(a, b)
+
+    nans._count_nans = counted
+    try:
+        # The stills of modes.render_image, its scene set-up (sky, disk
+        # system, renderer) outside the timed frame.
+        def still(state):
+            renderer, dynamic = state
+            if dynamic is not None:
+                renderer.update_disk_texture(
+                    dynamic.advance(t=0.0, dt=0.0, recompute_stats=True))
+            return renderer.render(renderer.config.pov, renderer.config.fov)
+
+        for tag, flags, kernel in (("fhd default", [], "ray_march_slim"),
+                                   ("fhd aa_flare", AA_FLAGS, "ray_march_aa"),
+                                   ("fhd v2", V2_FLAGS["v2"], "ray_march_slim")):
+            cfg = parse(flags)
+            off_and_on(tag, kernel, 1, lambda cfg=cfg: _make_renderer(cfg),
+                       still, images_equal)
+
+        # One batch of 4 frames of the FHD orbit video, on a one-card grid.
+        vcfg = parse(["--video", "--orbit", "--n_frames", "24", "--fps", "24"])
+        mesh = make_frame_mesh(1, 1, devices=[torch.device("cuda", 0)])
+        w, h = vcfg.image_size
+        n_phi, n_r = compute_disk_texture_resolution(
+            w, h, vcfg.pov, vcfg.fov, vcfg.disk_inner_radius, vcfg.disk_outer_radius)
+        sky, _, _ = load_or_generate_skybox(None, 2048, 1024, vcfg.n_stars,
+                                            seed=vcfg.skybox_seed)
+
+        def video_state():
+            dyn = DynamicDiskSystem(n_r, n_phi, vcfg.disk_inner_radius,
+                                    vcfg.disk_outer_radius, seed=vcfg.seed,
+                                    device="cuda")
+            return dyn, pack_frame_params(dyn, 4, vcfg.disk_rotation_speed)
+
+        def video_batch(state):
+            dyn, packs = state
+            out, _ = render_video_frames_sharded(vcfg, mesh, range(4), sky, dyn,
+                                                 *packs, defer_fetch=True)
+            return out.cpu().numpy()
+
+        off_and_on("fhd video batch of 4", "ray_march_slim", 4, video_state,
+                   video_batch, images_equal)
+
+        icfg = parse(["--interactive"])
+        off_and_on("fhd session step", "ray_march_slim", 1,
+                   lambda: InteractiveSession(icfg, lookahead=False),
+                   lambda sess: sess.step(0.05), images_equal)
+    finally:
+        nans._count_nans = real_count
+    check(not nans.debug_nans_enabled(), "the trap was left on")
+
+    # 13b. negative controls on the card: each must raise, naming its stage.
+    gcfg = SceneConfig(device="cuda", **GOLDEN).validated()
+    rng = np.random.default_rng(0)
+    sky = rng.random((256, 512, 3), dtype=np.float32)
+    tex = rng.random((64, 256, 4), dtype=np.float32)
+    nan_sky = np.full_like(sky, np.nan)
+    nan_tex = np.full_like(tex, np.nan)
+
+    def must_raise(what, stage, fn, kernel=None):
+        reset_counts()
+        raised = None
+        with nans.debug_nans():
+            try:
+                fn()
+            except FloatingPointError as exc:
+                raised = str(exc)
+        launched = {k: v for k, v in launches.items() if v}
+        say(f"[nans control {what}] {raised or 'no FloatingPointError'}; "
+            f"launches {launched}")
+        check(raised is not None and f"encountered in {stage}: " in raised,
+              f"[nans control {what}] expected a raise at {stage}, got {raised}")
+        if kernel is not None:
+            check(launched == {kernel: 1},
+                  f"[nans control {what}] launched {launched}")
+
+    late = Renderer(gcfg, nan_sky, tex)  # made before the trap is on
+    must_raise("nan skybox", "shade",
+               lambda: late.render(gcfg.pov, gcfg.fov), "ray_march_slim")
+    must_raise("nan disk texture", "mips", lambda: Renderer(gcfg, sky, nan_tex))
+    r = Renderer(gcfg, sky, tex)
+    cam = r.camera(gcfg.pov, gcfg.fov)
+    r_escape = escape_radius(gcfg.r_max, gcfg.pov)
+    # A NaN camera position: the kernel's min/max drop the NaN from the
+    # step size, so every ray marches to the iteration cap, neither
+    # captured nor escaped, and it writes no NaN (as its plain version
+    # and bhr_tpu's tracer): the trap stays quiet, the frame is black.
+    bad = dataclasses.replace(cam, pos=np.full(3, np.nan, np.float32))
+    reset_counts()
+    with nans.debug_nans():
+        lost = r.trace(bad, r_escape, False)
+    n_rays = gcfg.image_size[0] * gcfg.image_size[1]
+    quiet = (not bool(lost.captured.any()) and not bool(lost.escaped.any())
+             and int(lost.hit_count.sum()) == 0
+             and not bool(lost.escape_dir.isnan().any())
+             and not bool(lost.hits.isnan().any()))
+    say(f"[nans nan camera 320x180] ray_march_slim launches "
+        f"{launches['ray_march_slim']}: {n_rays} rays neither captured nor "
+        f"escaped, no hit and no NaN in the outputs {quiet}; the trap stays "
+        f"quiet")
+    check(quiet and launches["ray_march_slim"] == 1,
+          "the kernel's outputs of a NaN camera")
+    # The trace stage reads the kernel's own outputs: one of their values
+    # made NaN after the launch must raise there.
+    real_trace = pipeline.trace_geodesics_cuda
+
+    def poisoned(*args, **kw):
+        out = real_trace(*args, **kw)
+        out.escape_dir[1234, 1] = float("nan")
+        return out
+
+    pipeline.trace_geodesics_cuda = poisoned
+    try:
+        must_raise("kernel output with one NaN 320x180", "trace[ray_march_slim]",
+                   lambda: r.trace(cam, r_escape, False), "ray_march_slim")
+    finally:
+        pipeline.trace_geodesics_cuda = real_trace
+    del late, r, lost
+
+    # 13c. --no_compile_cache in a process of its own: ray_march (and the
+    # PNG encoder) built afresh into a private directory that is gone
+    # after it, the persistent build directory untouched.
+    def listing():
+        return {name: os.stat(os.path.join(_build.BUILD_DIR, name)).st_mtime_ns
+                for name in sorted(os.listdir(_build.BUILD_DIR))}
+
+    def cli_process(tag, argv, tmp):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "bhr_tpu_torch.cli", *argv], cwd=ROOT,
+            capture_output=True, text=True, timeout=300,
+            env={**os.environ, "TMPDIR": tmp})
+        wall = time.perf_counter() - t0
+        # "built <dir>/lib<name>_<16 hex digits>.so in <s> s (set-up)"
+        built = {name: (os.path.dirname(path), float(s)) for path, name, s in
+                 re.findall(r"^built (\S*/lib(\w+?)_[0-9a-f]{16}\.so) in "
+                            r"([0-9.]+) s", proc.stdout, re.M)}
+        say(f"[nans {tag}] {smi}: exit {proc.returncode} in {wall:.1f} s "
+            f"(process start and build included); built "
+            + ", ".join(f"{k} in {v[1]:.2f} s" for k, v in sorted(built.items())))
+        check(proc.returncode == 0,
+              f"[nans {tag}] exit {proc.returncode}: {proc.stderr[-2000:]}")
+        check("ray_march" in built, f"[nans {tag}] ray_march was not built afresh")
+        private = built["ray_march"][0]
+        check(os.path.dirname(private) == tmp
+              and os.path.basename(private).startswith("bhr_tpu_torch_build_"),
+              f"[nans {tag}] ray_march built into {private}, not a private "
+              f"directory in {tmp}")
+        check(all(d == private for d, _ in built.values()),
+              f"[nans {tag}] built {built}")
+        check(not os.path.exists(private),
+              f"[nans {tag}] {private} left behind")
+        check(listing() == before, f"[nans {tag}] _build/ changed")
+        return built
+
+    os.makedirs(os.path.join(ROOT, "output"), exist_ok=True)
+    before = listing()
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "output")) as tmp:
+        out = os.path.join(tmp, "still.png")
+        built = cli_process(
+            "--no_compile_cache still",
+            ["--no_compile_cache", "--debug_nans", "--width", "320", "--height",
+             "180", "-o", out], tmp)
+        say(f"[nans --no_compile_cache still] {smi}: ray_march's nvcc "
+            f"{built['ray_march'][1]:.2f} s into a private directory under "
+            f"{os.path.relpath(tmp, ROOT)}/, gone after the run; "
+            f"bhr_tpu_torch/_build/ holds the same {len(before)} files with the "
+            f"same mtimes; {os.path.getsize(out)} bytes of PNG")
+        check(os.listdir(tmp) == ["still.png"], f"left in {tmp}: {os.listdir(tmp)}")
+
+        # 13d. bhr_tpu's three flags together on a short orbit video.
+        cli_process(
+            "three flags video",
+            ["--debug_nans", "--compile_cache", "--no_compile_cache", "--video",
+             "--orbit", "--n_frames", "4", "--fps", "2", "--width", "320",
+             "--height", "180", "-o", os.path.join(tmp, "orbit.mp4")], tmp)
+    return path_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -2495,7 +2773,11 @@ def main() -> int:
                                clock_mhz).items():
         path_launches[name] += n
 
-    # 13. results
+    # 13. the NaN trap and the build cache
+    for name, n in nan_trap_phase(launches, reset_counts, smi).items():
+        path_launches[name] += n
+
+    # 14. results
     say(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
