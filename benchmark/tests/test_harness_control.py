@@ -1,0 +1,21 @@
+"""The control of the comparison: the reference in bfloat16 in the
+program's place must come out as not correct, for every cell, here at a
+tiny size on the CPU (on the card at the cells' own size:
+``python3 -m benchmark.calibrate``)."""
+
+from __future__ import annotations
+
+import pytest
+
+from benchmark import calibrate, harness
+from conftest import tiny
+
+SPEC = harness.load_benchmark()
+
+
+@pytest.mark.parametrize("cell", SPEC["workloads"], ids=lambda c: c["name"])
+def test_the_control_fails_a_limit(in_workdir, cell):
+    driver = harness.load_traffic(cell["traffic"])["driver"]
+    got = calibrate.control_numbers(cell["name"], 23, overrides=tiny(driver))
+    limits = harness.load_config(cell["config"])["limits"]
+    assert any(got[n] > limits[n] for n in limits), (got, limits)
