@@ -343,6 +343,10 @@ def _run(config: SceneConfig, args: argparse.Namespace) -> int:
         img = render_image(config)
         save_image(img, config.output)
         print(f"Saved: {config.output}")
+    from .utils.profiling import SPANS
+
+    if SPANS.counts:
+        print("Spans (host clock):\n" + SPANS.summary())
     return 0
 
 

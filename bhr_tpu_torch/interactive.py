@@ -31,6 +31,7 @@ import numpy as np
 
 from .config import SceneConfig, escape_radius
 from .utils.io import save_image
+from .utils.profiling import span
 
 _SOLO_KEYS = {
     "1": 0, "2": 1, "3": 3, "4": 11, "5": 12, "6": 5, "7": 9, "8": 7,
@@ -234,12 +235,15 @@ class _FusedEngine:
             self._renderers[key] = fn
         return fn
 
-    def render_async(self, cam_pos, fov, t, diff, bloom, flare, solo=-1):
+    def render_async(self, cam_pos, fov, t, entities, diff, bloom, flare,
+                     solo=-1):
         """Enqueue one frame; returns the (H, W, 3) uint8 tensor on the
         device without waiting for its last kernels (the host does wait
         for the trace inside the frame: shading reads ``max(hit_count)``).
-        ``solo`` >= 0 selects the solo-component debug view (the masked
-        component field, inside the same frame program)."""
+        ``entities`` are the lifecycle's packs at ``t``
+        (``DynamicDiskSystem._pack``), None for V2. ``solo`` >= 0 selects
+        the solo-component debug view (the masked component field, inside
+        the same frame program)."""
         from .camera import build_camera
         from .parallel.frames import pack_cameras
 
@@ -252,8 +256,8 @@ class _FusedEngine:
         width, height = cfg.image_size
         cam_pack = pack_cameras([build_camera(cam_pos, fov, width, height)])
         fil = hs = rt = None
-        if self.dynamic is not None:
-            fil, hs, rt = (np.asarray(a)[None] for a in self.dynamic._pack(t))
+        if entities is not None:
+            fil, hs, rt = (np.asarray(a)[None] for a in entities)
         return fn(self.skybox, cam_pack, np.asarray([t], np.float32),
                   fil, hs, rt)[0]
 
@@ -395,37 +399,48 @@ class InteractiveSession:
             if prev is not None:
                 started = prev
         host, copied = started
-        if copied is not None:
-            copied[1].synchronize()
+        with span("session.fetch_wait"):
+            if copied is not None:
+                copied[1].synchronize()
         return host
 
     def step(self, real_dt: float) -> np.ndarray:
-        """Advance the simulation by one display frame and render it."""
-        t0 = time.perf_counter()
+        """Advance the simulation by one display frame and render it:
+        the span ``session.step``, whose time the HUD shows."""
+        with span("session.step") as step:
+            img = self._step(real_dt)
+        self.last_render_ms = step.seconds * 1e3
+        self.render_s += step.seconds
+        self.fps = 0.9 * self.fps + 0.1 * (1.0 / max(real_dt, 1e-3))
+        return img
+
+    def _step(self, real_dt: float) -> np.ndarray:
+        """``step``'s work: the spans ``session.lifecycle``,
+        ``session.enqueue`` and ``session.fetch_wait`` on the fused path."""
         dt = min(real_dt, 0.1)  # clamped sim step (no jumps after stalls)
         scaled_dt = dt * self.config.disk_rotation_speed * 20.0
         self.wall_time += scaled_dt
         self.frames += 1
 
-        if self._fused is not None:
-            # Production path: the whole frame stays on the device;
-            # factory bookkeeping is the only host work besides
-            # enqueueing. Its normalization stats are recomputed every
-            # frame, and the solo debug views (1-8 keys) render here too,
-            # from the masked component field.
+        if self._fused is None:
+            return self._step_staged(scaled_dt)
+        # Production path: the whole frame stays on the device; factory
+        # bookkeeping and the entities' packing are the only host work
+        # besides enqueueing. Its normalization stats are recomputed
+        # every frame, and the solo debug views (1-8 keys) render here
+        # too, from the masked component field.
+        entities = None
+        with span("session.lifecycle"):
             if self.dynamic is not None:
                 for fac in self.dynamic.factories.values():
                     fac.tick(now=self.wall_time, dt=scaled_dt)
-            img = self._fetch(self._fused.render_async(
-                self.cam_pos(), self.fov, self.wall_time,
+                entities = self.dynamic._pack(self.wall_time)
+        with span("session.enqueue"):
+            frame = self._fused.render_async(
+                self.cam_pos(), self.fov, self.wall_time, entities,
                 self.diff, self.bloom, self.flare, solo=self.solo,
-            ))
-        else:
-            img = self._step_staged(scaled_dt)
-        self.last_render_ms = (time.perf_counter() - t0) * 1e3
-        self.render_s += self.last_render_ms / 1e3
-        self.fps = 0.9 * self.fps + 0.1 * (1.0 / max(real_dt, 1e-3))
-        return img
+            )
+        return self._fetch(frame)
 
     def _step_staged(self, scaled_dt: float) -> np.ndarray:
         """The staged Renderer path: stubbed-renderer tests and

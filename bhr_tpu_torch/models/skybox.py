@@ -34,6 +34,7 @@ from ..constants import (
     SKY_STAR_SIZE_MAX,
     SKY_STAR_SIZE_MIN,
 )
+from ..utils.profiling import span
 
 # Galactic geometry (J2000-ish): inclination of the galactic plane to the
 # equator and the RA/Dec of the galactic center.
@@ -292,8 +293,9 @@ def load_or_generate_skybox(
             except Exception:
                 pass  # corrupt cache entry: fall through and regenerate
 
-    texture = generate_skybox(tex_w=tex_w, tex_h=tex_h, seed=seed,
-                              n_stars=n_stars)
+    with span("skybox.generate"):
+        texture = generate_skybox(tex_w=tex_w, tex_h=tex_h, seed=seed,
+                                  n_stars=n_stars)
     if cache_path:
         # Temp + replace: concurrent starts (multi-host video
         # processes, parallel tests) must never load a half-written

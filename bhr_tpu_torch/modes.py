@@ -40,6 +40,7 @@ from .utils.io import (
     write_json_atomic,
     write_mjpeg_avi,
 )
+from .utils.profiling import spanned
 
 
 def _scene_assets(config: SceneConfig, device) -> tuple:
@@ -443,12 +444,13 @@ def _render_video_frames(config, temp_dir, renderer, dynamic, writer,
                   f"done {len(completed)} ETA {eta / 60:.0f}min")
 
 
+@spanned("video.assemble")
 def _assemble_video(temp_dir: str, output_path: str, n_frames: int,
                     fps: int, crf: int = 18) -> str:
     """Post-pass assembly from the PNG frames: the native libavcodec
     writer, then the ffmpeg CLI, then the MJPEG AVI, then the frames are
     kept where they are. Returns which one finished: "native", "ffmpeg",
-    "mjpeg" or "none"."""
+    "mjpeg" or "none". Each call is the span ``video.assemble``."""
     if _assemble_video_native(temp_dir, output_path, n_frames, fps, crf):
         return "native"
     if shutil.which("ffmpeg"):

@@ -117,6 +117,7 @@ from ..utils.io import (
     write_json_atomic,
 )
 from ..utils.nans import check_nans
+from ..utils.profiling import SPANS, span, spanned
 from .frames import cameras_for_orbit, pack_cameras
 from .mesh import (
     FrameMesh,
@@ -140,6 +141,7 @@ def frame_stages(config: SceneConfig) -> tuple:
     return STAGES[1:] if config.disk_model == "v2" else STAGES
 
 
+@spanned("lifecycle.pack")
 def pack_frame_params(
     dynamic: DynamicDiskSystem, n_frames: int, dt: float
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -245,61 +247,70 @@ def build_sharded_video_renderer(
         with_differentials=use_diff, record_hits=True,
         record_step_counts=False))
 
+    @contextlib.contextmanager
+    def frame_stage(name, mark):
+        """One stage of a frame: the span ``frame.<name>`` on the host's
+        clock, then ``mark(name)`` (the stage's CUDA event) once the
+        stage is enqueued."""
+        with span("frame." + name):
+            yield
+        mark(name)
+
     def start_frame(dev, cam, t, entities, background, mark):
         """Texture, mips and trace of one frame (a V2 frame: the trace
         alone): nothing here waits for the device."""
         mark("start")
         mips = None
         if not is_v2:
-            tex, _, _ = frame_texture(
-                *entities, omega_rows[dev], edge[dev], t,
-                n_r=n_r, n_phi=n_phi, az_freq=az_freq, az_shear=az_shear,
-                r_inner=r_inner, r_outer=r_outer,
-                generation_scale=generation_scale,
-                color_temp=DISK_COLOR_TEMPERATURE, background=background,
-                solo_idx=solo_idx, stage_prefix="video/",
+            with frame_stage("texture", mark):
+                tex, _, _ = frame_texture(
+                    *entities, omega_rows[dev], edge[dev], t,
+                    n_r=n_r, n_phi=n_phi, az_freq=az_freq, az_shear=az_shear,
+                    r_inner=r_inner, r_outer=r_outer,
+                    generation_scale=generation_scale,
+                    color_temp=DISK_COLOR_TEMPERATURE, background=background,
+                    solo_idx=solo_idx, stage_prefix="video/",
+                )
+                if use_diff:
+                    mips = build_mipmaps(tex, levels=MIP_LEVELS)
+                    check_nans("video/mips", mips)
+                else:
+                    mips = tex[None]
+        with frame_stage("trace", mark):
+            trace = trace_geodesics_cuda(
+                cam, width=width, height=height,
+                h_base=float(cfg.step_size), r_escape=float(r_escape),
+                tilt_deg=float(cfg.disk_tilt), r_inner=r_inner, r_outer=r_outer,
+                with_differentials=use_diff, max_crossings=MAX_DISK_CROSSINGS,
+                record_hits=True,
             )
-            if use_diff:
-                mips = build_mipmaps(tex, levels=MIP_LEVELS)
-                check_nans("video/mips", mips)
-            else:
-                mips = tex[None]
-            mark("texture")
-        trace = trace_geodesics_cuda(
-            cam, width=width, height=height,
-            h_base=float(cfg.step_size), r_escape=float(r_escape),
-            tilt_deg=float(cfg.disk_tilt), r_inner=r_inner, r_outer=r_outer,
-            with_differentials=use_diff, max_crossings=MAX_DISK_CROSSINGS,
-            record_hits=True,
-        )
-        check_nans(trace_stage, trace)
-        mark("trace")
+            check_nans(trace_stage, trace)
         return mips, trace
 
     def finish_frame(skybox, cam, t, mips, trace, mark) -> torch.Tensor:
         """Shade, post and quantize one frame -> (H, W, 3) uint8."""
-        if is_v2:
-            # The structure pattern advects with the frame's time.
-            bg, disk, _ = shade_frame_v2(
-                trace, skybox, cam[0:3], t_offset=t, **v2_args)
-            check_nans("video/shade_v2", bg, disk)
-        else:
-            # The lifecycle texture carries its own rotation: t_offset 0.
-            bg, disk, _ = shade_frame(
-                trace, skybox, mips, cam[0:3],
-                r_inner=r_inner, r_outer=r_outer,
-                tilt_deg=float(cfg.disk_tilt), t_offset=0.0,
-                use_lod=use_diff, aa_strength=float(cfg.aa_strength),
-            )
-            check_nans("video/shade", bg, disk)
-        mark("shade")
-        final = post_process(bg.reshape(shape), disk.reshape(shape),
-                             use_bloom, cfg.lens_flare)
-        check_nans("video/post", final)
-        # uint8 on the device: a quarter of the bytes to fetch, and what
-        # the PNG wants; round half to even, as bhr_tpu's jnp.round.
-        out = torch.round(final * 255.0).to(torch.uint8)
-        mark("post")
+        with frame_stage("shade", mark):
+            if is_v2:
+                # The structure pattern advects with the frame's time.
+                bg, disk, _ = shade_frame_v2(
+                    trace, skybox, cam[0:3], t_offset=t, **v2_args)
+                check_nans("video/shade_v2", bg, disk)
+            else:
+                # The lifecycle texture carries its own rotation: t_offset 0.
+                bg, disk, _ = shade_frame(
+                    trace, skybox, mips, cam[0:3],
+                    r_inner=r_inner, r_outer=r_outer,
+                    tilt_deg=float(cfg.disk_tilt), t_offset=0.0,
+                    use_lod=use_diff, aa_strength=float(cfg.aa_strength),
+                )
+                check_nans("video/shade", bg, disk)
+        with frame_stage("post", mark):
+            final = post_process(bg.reshape(shape), disk.reshape(shape),
+                                 use_bloom, cfg.lens_flare)
+            check_nans("video/post", final)
+            # uint8 on the device: a quarter of the bytes to fetch, and what
+            # the PNG wants; round half to even, as bhr_tpu's jnp.round.
+            out = torch.round(final * 255.0).to(torch.uint8)
         return out
 
     def render(skybox, cam_pack, t_arr, fil, hs, rt, on_frame=None,
@@ -326,14 +337,14 @@ def build_sharded_video_renderer(
         # one pass: backgrounds[i][k] is frame i + k * n's.
         backgrounds = []
         for i, dev in enumerate(() if is_v2 else devices):
-            if on_stage:
-                on_stage("start", None, dev)
-            backgrounds.append(generate_background_components(
-                n_r, n_phi, az_freq, az_shear, r_inner, r_outer, t_np[i::n],
-                generation_scale=generation_scale, device=dev))
-            check_nans("video/background", backgrounds[-1])
-            if on_stage:
-                on_stage("background", None, dev)
+            mark = (lambda stage, dev=dev:
+                    on_stage and on_stage(stage, None, dev))
+            mark("start")
+            with frame_stage("background", mark):
+                backgrounds.append(generate_background_components(
+                    n_r, n_phi, az_freq, az_shear, r_inner, r_outer, t_np[i::n],
+                    generation_scale=generation_scale, device=dev))
+                check_nans("video/background", backgrounds[-1])
         frames = [None] * n_frames
         for first in range(0, n_frames, n):
             # One round: the next frame of every device.
@@ -526,17 +537,48 @@ def render_video_sharded(config: SceneConfig, devices=None) -> dict:
     Returns the run's statistics: ``frames`` rendered in this run (by
     the whole fleet), ``own_frames`` written by this process,
     ``padded`` repeats of the last frame that filled the last batch
-    (rendered, never written), ``wall_s``, ``fps`` (frames / wall_s),
-    ``steady_fps`` (the frames after the first batch over the time from
-    the first batch's enqueueing to the end; None for a single batch),
-    ``assembler`` ("native", "ffmpeg", "mjpeg" or "none"; None on the
-    processes of a fleet that do not assemble), ``stage_ms``
-    (per-frame medians: background (a batch's pass over its frames),
-    texture, trace, shade, post on the device's clock, fetch on the copy
-    stream's, png and h264 on the host's; a V2 video has no background
-    and no texture entry) and
-    ``writer_wait_s`` (how long the main thread waited on the writers).
+    (rendered, never written), ``wall_s``, ``steady_fps`` (the frames
+    after the first batch over the time from the first batch's
+    enqueueing to the end; None for a single batch), ``assembler``
+    ("native", "ffmpeg", "mjpeg" or "none"; None on the processes of a
+    fleet that do not assemble), ``stage_ms`` (per-frame medians:
+    background (a batch's pass over its frames), texture, trace, shade,
+    post on the device's clock, fetch on the copy stream's, png, h264
+    and hit_sync (``frame.hit_sync``, the shade's wait for the trace) on
+    the host's; a V2 video has no background and no texture entry; and
+    the job's four top-level spans on the host's clock, each its total
+    over the frames rendered: job_setup (entry to the first batch's
+    enqueue), enqueue (the batches' enqueue), record (each batch's PNGs
+    waited for and recorded) and finish (the writers' drain and the
+    video file)) and ``writer_wait_s`` (how long the main thread waited
+    on the writers). The spans are ``utils.profiling.SPANS``'.
     """
+    mark = SPANS.mark()
+    # The job's set-up is the span ``video.job_setup``, from here to the
+    # first batch's enqueue: the job closes it (``end_setup``), or the
+    # stack does where the set-up raises.
+    with contextlib.ExitStack() as setup:
+        setup.enter_context(span("video.job_setup"))
+        stats = _render_video_job(config, devices, setup.close)
+    frames = stats["frames"]
+
+    def job_ms(name: str) -> Optional[float]:
+        # A span's time in this job, in ms per frame rendered.
+        return SPANS.total_s(name, mark) * 1e3 / frames if frames else None
+
+    stats["stage_ms"].update(
+        png=SPANS.median_ms("writers.png", mark),
+        h264=SPANS.median_ms("writers.h264", mark),
+        hit_sync=SPANS.median_ms("frame.hit_sync", mark),
+        **{name: job_ms("video." + name)
+           for name in ("job_setup", "enqueue", "record", "finish")})
+    return stats
+
+
+def _render_video_job(config: SceneConfig, devices, end_setup) -> dict:
+    """``render_video_sharded``'s job, with the span-derived entries of
+    ``stage_ms`` left out; ``end_setup()`` ends the set-up's span before
+    the first batch is enqueued."""
     from ..modes import (
         _assemble_video,
         _finish_video,
@@ -751,6 +793,7 @@ def render_video_sharded(config: SceneConfig, devices=None) -> dict:
                 f"done {len(completed)}/{config.n_frames} "
                 f"({rate:.2f} frames/s)")
 
+    end_setup()
     # The with-block covers everything through finalize: an exception
     # anywhere in it discards the partial video via __exit__, after the
     # inner finally has stopped the threads that feed it; in a fleet it
@@ -770,17 +813,23 @@ def render_video_sharded(config: SceneConfig, devices=None) -> dict:
                 # The last batch is padded with repeats of its last frame.
                 idx = chunk + [chunk[-1]] * (batch - len(chunk))
                 current = Batch(b, chunk)
-                render_video_frames_sharded(
-                    config, mesh, [idx[p] for p in own], skybox, dynamic,
-                    all_fil, all_hs, all_rt, renderer_fn, defer_fetch=True,
-                    on_frame=current.on_frame, on_stage=current.on_stage)
+                with span("video.enqueue"):
+                    render_video_frames_sharded(
+                        config, mesh, [idx[p] for p in own], skybox, dynamic,
+                        all_fil, all_hs, all_rt, renderer_fn, defer_fetch=True,
+                        on_frame=current.on_frame, on_stage=current.on_stage)
                 batch_enqueued_t.append(time.time())
                 if inflight is not None:
-                    process(inflight)
+                    with span("video.record"):
+                        process(inflight)
                 inflight = current
             if inflight is not None:
-                process(inflight)
+                with span("video.record"):
+                    process(inflight)
         finally:
+            # The job's last span, from the writers' drain to the video
+            # file: the stack closes it after the file is finished.
+            stack.enter_context(span("video.finish"))
             try:
                 h264_pool.shutdown(wait=True)
             finally:
@@ -805,14 +854,8 @@ def render_video_sharded(config: SceneConfig, devices=None) -> dict:
         "own_frames": written[0],
         "padded": n_batches * batch - len(pending),
         "wall_s": wall_s,
-        "fps": len(pending) / max(wall_s, 1e-9),
         "steady_fps": steady_fps,
         "assembler": finished_by,
-        "stage_ms": {
-            **{name: _median_ms(v) for name, v in stage_ms.items()},
-            "png": _median_ms([s * 1e3 for s in writer.encode_s]),
-            "h264": _median_ms([s * 1e3 for s in assembler.encode_s]
-                               if inline else []),
-        },
+        "stage_ms": {name: _median_ms(v) for name, v in stage_ms.items()},
         "writer_wait_s": waited[0],
     }

@@ -45,6 +45,7 @@ from .ops.lens_flare import apply_lens_flare
 from .ops.sampling import build_mipmaps, sample_disk, sample_disk_mip, sample_skybox
 from .ops.shading import apply_g_factor, pow_const
 from .utils.nans import check_nans
+from .utils.profiling import span
 
 
 # Mip levels of the disk texture's pyramid (level 0 included).
@@ -72,6 +73,16 @@ def _lod(feat: torch.Tensor, hit_x: torch.Tensor, hit_y: torch.Tensor,
     grad_sq = torch.maximum(dudx ** 2 + dvdx ** 2, dudy ** 2 + dvdy ** 2)
     return torch.clamp(
         torch.log2(torch.clamp(grad_sq, min=1.0)) * aa_strength, 0.0, 3.0)
+
+
+def _max_hits(trace, n: int) -> int:
+    """The most disk hits of any ray: the host's one wait inside a frame
+    (the span ``frame.hit_sync``), after which the device's queue is
+    empty."""
+    if not n:
+        return 0
+    with span("frame.hit_sync"):
+        return int(trace.hit_count.max())
 
 
 def shade_frame(
@@ -115,7 +126,7 @@ def shade_frame(
 
     if disk_mips is not None:
         tex_h, tex_w = disk_mips.shape[1], disk_mips.shape[2]
-        max_hits = int(trace.hit_count.max()) if n else 0
+        max_hits = _max_hits(trace, n)
         for k in range(k_slots):
             if k > 0 and k >= max_hits:
                 break
@@ -264,7 +275,7 @@ def shade_frame_v2(
     dev = trace.hits.device
     accum = torch.zeros((n, 3), dtype=torch.float32, device=dev)
     alpha_total = torch.zeros((n,), dtype=torch.float32, device=dev)
-    max_hits = int(trace.hit_count.max()) if n else 0
+    max_hits = _max_hits(trace, n)
 
     slots = range(min(trace.hits.shape[0], max_hits))
     if slots:  # (no slot: nothing to gather)

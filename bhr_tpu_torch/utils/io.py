@@ -16,7 +16,6 @@ from __future__ import annotations
 
 import os
 import struct
-import time
 import zlib
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import List, Optional
@@ -24,6 +23,7 @@ from typing import List, Optional
 import numpy as np
 
 from .. import native
+from .profiling import span
 
 # Deflate levels of the PNGs: the native encoder's (bhr_tpu's) and the
 # standard-library path's. PNG is lossless, so a level changes a file's
@@ -212,23 +212,21 @@ class AsyncPNGWriter:
     reads ``image``, so a frame still on its way from the device can be
     queued at once. It returns the write's future, for a caller that
     waits for some frames and not for all. ``drain()`` returns once
-    every queued frame is on disk and raises the first failure.
-    ``encode_s`` holds the seconds
-    each finished frame took to encode and write, for run statistics.
+    every queued frame is on disk and raises the first failure. Each
+    frame's encode and write is the span ``writers.png``
+    (``utils.profiling.SPANS``).
     """
 
     def __init__(self, max_workers: int = 2, max_pending: int = 4):
         self._pool = ThreadPoolExecutor(max_workers=max_workers)
         self._pending: List[Future] = []
         self._max_pending = max_pending
-        self.encode_s: List[float] = []
 
     def _write(self, image, path: str, ready) -> None:
         if ready is not None:
             ready.synchronize()
-        t0 = time.perf_counter()
-        save_image(np.asarray(image), path)
-        self.encode_s.append(time.perf_counter() - t0)
+        with span("writers.png"):
+            save_image(np.asarray(image), path)
 
     def submit(self, image, path: str, ready=None) -> Future:
         if len(self._pending) >= self._max_pending:
@@ -413,8 +411,6 @@ class IncrementalH264Assembler:
         # discard() must never delete a video this run did not open
         # (e.g. an inert assembler and Ctrl-C).
         self._opened = False
-        # Seconds each submitted frame took to encode, for run statistics.
-        self.encode_s: List[float] = []
         ext = os.path.splitext(output_path)[1].lower()
         self._dead = (ext not in H264_CONTAINER_EXTS
                       or not native.video_available())
@@ -449,15 +445,13 @@ class IncrementalH264Assembler:
         the post-pass fallback takes over at ``finalize``."""
         if self._dead or frame_idx >= self._n:
             return
-        t0 = time.perf_counter()
         try:
-            self._catch_up(frame_idx)
-            self._encode(quantize_frame(np.asarray(image)))
+            with span("writers.h264"):
+                self._catch_up(frame_idx)
+                self._encode(quantize_frame(np.asarray(image)))
         except Exception as exc:
             self._report_fallback(exc)
             self.discard()
-        else:
-            self.encode_s.append(time.perf_counter() - t0)
 
     def finalize(self) -> bool:
         """Close the container. True = the video is complete at

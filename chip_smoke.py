@@ -1152,7 +1152,7 @@ def video_phase(launches, reset_counts) -> tuple:
                       else f"{stats['steady_fps']:.3f}")
             say(f"[video fhd {tag}] {' '.join(argv[:-2])} on {n_cards} card(s): "
                 f"{stats['frames']} frames (+{stats['padded']} padding) in "
-                f"{stats['wall_s']:.2f} s, {stats['fps']:.3f} frames/s end to end, "
+                f"{stats['wall_s']:.2f} s, {stats['frames'] / stats['wall_s']:.3f} frames/s end to end, "
                 f"{steady} steady; per-frame medians ms: "
                 + ", ".join(f"{k} {v:.3f}" for k, v in stats["stage_ms"].items()
                             if v is not None)
@@ -1199,7 +1199,7 @@ def video_phase(launches, reset_counts) -> tuple:
                 say(f"[video fhd {tag}] sequential engine (--frame_shards 1): "
                     f"{seq['frames']} frames in {seq['wall_s']:.2f} s, "
                     f"{seq['frames'] / seq['wall_s']:.3f} frames/s end to end "
-                    f"(batched: {stats['fps']:.3f}); ray_march_slim launches "
+                    f"(batched: {stats['frames'] / stats['wall_s']:.3f}); ray_march_slim launches "
                     f"{launches['ray_march_slim']}")
                 expect_video_launches(dict(launches), expected, n_frames,
                                       plain_calls, f"sequential FHD video {tag}")
@@ -1209,9 +1209,9 @@ def video_phase(launches, reset_counts) -> tuple:
                     one = render_video_sharded(
                         dataclasses.replace(cfg, output=out.replace(".mp4", "_1card.mp4")),
                         devices=[torch.device("cuda", 0)])
-                    say(f"[video fhd {tag}] on 1 card: {one['fps']:.3f} frames/s end "
+                    say(f"[video fhd {tag}] on 1 card: {one['frames'] / one['wall_s']:.3f} frames/s end "
                         f"to end, {one['steady_fps']:.3f} steady (all {n_cards}: "
-                        f"{stats['fps']:.3f}, {steady})")
+                        f"{stats['frames'] / stats['wall_s']:.3f}, {steady})")
                     fhd_stats["default on 1 card"] = one
         return path_launches, fhd_stats
     finally:
@@ -1664,7 +1664,7 @@ def fleet_phase(fhd_video_stats, smi) -> dict:
                   else f"{stats['steady_fps']:.3f}")
         say(f"[fleet fhd {tag}] {smi}: {' '.join(argv[:-2])} in {n_proc} processes: "
             f"24 frames (+{stats['padded']} padding) in {stats['wall_s']:.2f} s, "
-            f"{stats['fps']:.3f} frames/s end to end, {steady} steady; process "
+            f"{stats['frames'] / stats['wall_s']:.3f} frames/s end to end, {steady} steady; process "
             f"0's per-frame medians ms: "
             + ", ".join(f"{k} {v:.3f}" for k, v in stats["stage_ms"].items()
                         if v is not None)
@@ -1685,7 +1685,7 @@ def fleet_phase(fhd_video_stats, smi) -> dict:
     def rates(stats):
         steady = ("n/a (one batch)" if stats["steady_fps"] is None
                   else f"{stats['steady_fps']:.3f}")
-        return f"{stats['fps']:.3f} frames/s end to end, {steady} steady"
+        return f"{stats['frames'] / stats['wall_s']:.3f} frames/s end to end, {steady} steady"
 
     one_card = fhd_video_stats.get("default on 1 card", one)
     say(f"[fleet fhd] one process on one card in this call (phase 7d): "
@@ -1982,7 +1982,7 @@ def png_phase(launches, reset_counts, smi) -> dict:
               f"video {tag}: the encoders' last frames differ")
         say(f"[video {tag} png] {smi}: --video --orbit -r fhd --n_frames 24 "
             f"{' '.join(flags)} twice, in turns ({', '.join(order)}): " + "; ".join(
-                f"{enc} {st['fps']:.3f} frames/s end to end, "
+                f"{enc} {st['frames'] / st['wall_s']:.3f} frames/s end to end, "
                 + ("n/a" if st["steady_fps"] is None else f"{st['steady_fps']:.3f}")
                 + f" steady, PNG median {st['stage_ms']['png']:.3f} ms, main thread "
                 f"waited on the writers {st['writer_wait_s']:.3f} s"

@@ -30,6 +30,7 @@ from bhr_tpu import native as jnative
 
 from bhr_tpu_torch import _build, native
 from bhr_tpu_torch.utils import io as tio
+from bhr_tpu_torch.utils.profiling import SPANS
 
 LEVELS = (0, 1, 2, 6, 9)
 
@@ -180,12 +181,13 @@ def test_save_image_float_quantization_parity(encoder, tmp_path, monkeypatch):
 
 def test_async_writer_writes_native_frames(encoder, tmp_path):
     frames = [_gradient(36, 64) // (i + 1) for i in range(5)]
+    mark = SPANS.mark()
     writer = tio.AsyncPNGWriter(max_workers=2, max_pending=2)
     paths = [str(tmp_path / f"frame_{i:04d}.png") for i in range(5)]
     for img, path in zip(frames, paths):
         writer.submit(img, path)
     writer.close()
-    assert len(writer.encode_s) == 5
+    assert SPANS.count("writers.png", mark) == 5
     for img, path in zip(frames, paths):
         with open(path, "rb") as f:
             data = f.read()

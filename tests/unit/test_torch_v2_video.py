@@ -153,7 +153,7 @@ def test_v2_video_has_no_texture_stage_and_no_lifecycle(tmp_path, monkeypatch):
     cfg = _cfg(tmp_path, "stages.mp4", n_frames=2)
     stats = _batched(cfg, slots=2)
     assert set(stats["stage_ms"]) == {"trace", "shade", "post", "fetch", "png",
-                                      "h264"}
+                                      "h264", "job_setup", "enqueue", "record", "finish", "hit_sync"}
     assert all(stats["stage_ms"][k] > 0 for k in ("trace", "shade", "post"))
     assert frame_stages(cfg) == ("trace", "shade", "post")
     assert frame_stages(dataclasses.replace(cfg, disk_model="texture")) == (

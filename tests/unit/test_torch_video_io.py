@@ -31,6 +31,7 @@ import pytest
 from bhr_tpu_torch import native
 from bhr_tpu_torch.modes import _assemble_video
 from bhr_tpu_torch.utils import io as tio
+from bhr_tpu_torch.utils.profiling import SPANS
 from bhr_tpu_torch.utils.io import (
     AsyncPNGWriter,
     IncrementalH264Assembler,
@@ -177,6 +178,7 @@ class _Gate:
 
 
 def test_async_writer_waits_for_the_frame_before_reading_it(tmp_path):
+    mark = SPANS.mark()
     writer = AsyncPNGWriter(max_workers=2, max_pending=4)
     frame = np.zeros((8, 8, 3), np.uint8)
     gate = _Gate()
@@ -187,7 +189,8 @@ def test_async_writer_waits_for_the_frame_before_reading_it(tmp_path):
     writer.close()
     assert gate.waited
     assert (load_png_rgb8(path) == 200).all()
-    assert len(writer.encode_s) == 1 and writer.encode_s[0] > 0
+    assert SPANS.count("writers.png", mark) == 1
+    assert SPANS.samples("writers.png", mark)[0] > 0
 
 
 def test_async_writer_drain_raises_a_failed_write(tmp_path, monkeypatch):
@@ -350,6 +353,7 @@ def test_assembler_catches_up_from_pngs_in_index_order(tmp_path, stub_native):
     for f in (0, 1, 3):  # frames an earlier run left on disk
         save_image(_value_frame(10 * f), str(tmp_path / f"frame_{f:04d}.png"))
     out = str(tmp_path / "out" / "v.mp4")
+    mark = SPANS.mark()
     with IncrementalH264Assembler(out, 5, 24, str(tmp_path), crf=20) as asm:
         asm.submit(2, _value_frame(20).astype(np.float32) / 255.0)
         asm.submit(4, _value_frame(40))
@@ -360,7 +364,7 @@ def test_assembler_catches_up_from_pngs_in_index_order(tmp_path, stub_native):
     assert writer.frames == [0, 10, 20, 30, 40]
     assert (writer.size, writer.fps, writer.crf) == ((6, 4), 24, 20)
     assert writer.state == "closed" and os.path.exists(out)
-    assert len(asm.encode_s) == 2
+    assert SPANS.count("writers.h264", mark) == 2
 
 
 def test_assembler_finalize_reads_trailing_frames(tmp_path, stub_native):
