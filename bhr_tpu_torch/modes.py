@@ -34,9 +34,10 @@ from .pipeline import Renderer
 from .utils.io import (
     H264_CONTAINER_EXTS,
     AsyncPNGWriter,
-    IncrementalH264Assembler,
+    InlineVideoAssembler,
     load_disk_texture,
     load_png_rgb8,
+    mjpeg_avi_path,
     write_json_atomic,
     write_mjpeg_avi,
 )
@@ -350,7 +351,7 @@ def render_video(config: SceneConfig,
               f"in {time.time() - t0:.1f}s")
 
     writer = AsyncPNGWriter(max_workers=2, max_pending=4)
-    assembler = IncrementalH264Assembler(
+    assembler = InlineVideoAssembler(
         output_path, config.n_frames, config.fps, temp_dir,
         crf=config.video_crf,
     )
@@ -387,12 +388,27 @@ def render_video(config: SceneConfig,
 
 def _finish_video(assembler, temp_dir: str, config: SceneConfig) -> str:
     """Finalize the inline video or run the post-pass chain -> the name
-    of the assembler that finished the file."""
+    of the assembler that finished the file: the inline writer's
+    ("native" or "mjpeg") or the post-pass's."""
     if assembler.finalize():
-        print(f"Video saved: {config.output}")
-        return "native"
+        if assembler.kind == "mjpeg":
+            _report_mjpeg_avi(assembler.path, config.output, config.video_crf)
+        else:
+            print(f"Video saved: {config.output}")
+        return assembler.kind
     return _assemble_video(temp_dir, config.output, config.n_frames,
                            config.fps, crf=config.video_crf)
+
+
+def _report_mjpeg_avi(avi_path: str, output_path: str, crf: int) -> None:
+    """Where the MJPEG AVI landed, and how to re-mux it to the asked-for
+    container."""
+    print(f"Video saved (MJPEG AVI fallback): {avi_path}")
+    if avi_path != output_path:
+        ext = os.path.splitext(output_path)[1]
+        print(f"Re-mux to {ext or '.mp4'} later: "
+              f"ffmpeg -i {avi_path} -c:v libx264 -crf {crf} "
+              f"-pix_fmt yuv420p {output_path}")
 
 
 def _render_video_frames(config, temp_dir, renderer, dynamic, writer,
@@ -465,8 +481,7 @@ def _assemble_video(temp_dir: str, output_path: str, n_frames: int,
             return "ffmpeg"
     # The last resort must never lose a long render: a failure here
     # (Pillow missing, a corrupt frame) ends in the keep-frames message.
-    base, ext = os.path.splitext(output_path)
-    avi_path = output_path if ext.lower() == ".avi" else base + ".avi"
+    avi_path = mjpeg_avi_path(output_path)
     frames = [
         os.path.join(temp_dir, f"frame_{f:04d}.png") for f in range(n_frames)
     ]
@@ -479,11 +494,7 @@ def _assemble_video(temp_dir: str, output_path: str, n_frames: int,
               f"{temp_dir}/frame_%04d.png -c:v libx264 -crf {crf} "
               f"-pix_fmt yuv420p {output_path}")
         return "none"
-    print(f"Video saved (MJPEG AVI fallback): {avi_path}")
-    if avi_path != output_path:
-        print(f"Re-mux to {ext or '.mp4'} later: "
-              f"ffmpeg -i {avi_path} -c:v libx264 -crf {crf} "
-              f"-pix_fmt yuv420p {output_path}")
+    _report_mjpeg_avi(avi_path, output_path, crf)
     return "mjpeg"
 
 

@@ -33,11 +33,11 @@ two engines, and a resume may mix them.
 Where ``bhr_tpu`` compiles one sharded program whose call returns at
 once, PyTorch runs eagerly and the host waits inside every frame
 (shading reads ``max(hit_count)``). So the overlap of rendering with the
-frame fetch, the PNG encode and the H.264 encode is built by hand: each
-finished uint8 frame is copied to pinned host memory on a copy stream,
-and writer threads wait for that copy, encode the PNG and feed the
-H.264 assembler (in frame order) while the main thread goes on
-enqueueing. ``progress.json`` records a batch only after its PNGs are on
+frame fetch, the PNG encode and the video file's encode is built by
+hand: each finished uint8 frame is copied to pinned host memory on a
+copy stream, and writer threads wait for that copy, encode the PNG and
+feed the inline video assembler (H.264 or MJPEG AVI, in frame order)
+while the main thread goes on enqueueing. ``progress.json`` records a batch only after its PNGs are on
 disk, and batch b is recorded after batch b + 1 has been enqueued (the
 one-batch lookahead).
 
@@ -112,7 +112,7 @@ from ..pipeline import (
 )
 from ..utils.io import (
     AsyncPNGWriter,
-    IncrementalH264Assembler,
+    InlineVideoAssembler,
     compute_edge_alpha,
     write_json_atomic,
 )
@@ -189,7 +189,7 @@ def build_sharded_video_renderer(
     on_frame=None, on_stage=None) -> (F, H, W, 3)`` uint8 frames on the
     mesh's first device. F must be a multiple of the mesh's "frames"
     axis n. The frames go round that axis device by device, frame i on
-    device i % n, so they finish in index order (the H.264 assembler
+    device i % n, so they finish in index order (the video assembler
     wants them so); in each round every device's texture and trace are
     enqueued before any is shaded, since shading waits for its trace.
     Which device renders a frame does not change it. The mesh may name a
@@ -527,7 +527,7 @@ def render_video_sharded(config: SceneConfig, devices=None) -> dict:
     decides between resume and wipe and broadcasts the completed frames;
     after each batch every process waits for its own PNGs, then for the
     others at a barrier, then process 0 records the batch. No process
-    holds every frame, so the H.264 encoder does not run inline: process
+    holds every frame, so the video file is not encoded inline: process
     0 assembles the video from the shared frame directory at the end,
     while the others wait at a last barrier (the processes must share
     the output directory). An exception on any process ends it with
@@ -697,13 +697,13 @@ def _render_video_job(config: SceneConfig, devices, end_setup) -> dict:
     stages = frame_stages(config)
 
     writer = AsyncPNGWriter(max_workers=4, max_pending=8)
-    # One thread feeds the H.264 assembler, so frames reach it in the
+    # One thread feeds the video assembler, so frames reach it in the
     # order they were queued: index order. In a fleet no process holds
     # every frame: the inline encoder is left out and process 0 runs the
     # post-pass over the shared frame directory instead.
     inline = n_proc == 1
-    h264_pool = ThreadPoolExecutor(max_workers=1)
-    assembler = (IncrementalH264Assembler(
+    video_pool = ThreadPoolExecutor(max_workers=1)
+    assembler = (InlineVideoAssembler(
         output_path, config.n_frames, config.fps, temp_dir,
         crf=config.video_crf) if inline else None)
     fetcher = _FrameFetcher()
@@ -715,14 +715,14 @@ def _render_video_job(config: SceneConfig, devices, end_setup) -> dict:
     stage_ms = {name: [] for name in
                 (*(() if is_v2 else ("background",)), *stages, "fetch")}
 
-    def encode_h264(f, frame, copied) -> None:
+    def encode_video(f, frame, copied) -> None:
         if copied is not None:
             copied[1].synchronize()
         assembler.submit(f, frame)
 
     class Batch:
         """One enqueued batch: its real frames, the stamps of its stages
-        and the copies, PNG writes and H.264 jobs still under way. The
+        and the copies, PNG writes and video encodes still under way. The
         renderer numbers this process's frames 0, 1, ...: frame j of it
         is position ``own[j]`` of the batch."""
 
@@ -749,7 +749,7 @@ def _render_video_job(config: SceneConfig, devices, end_setup) -> dict:
             waited[0] += time.perf_counter() - t0
             written[0] += 1
             if inline:
-                self.jobs.append(h264_pool.submit(encode_h264, f, host, copied))
+                self.jobs.append(video_pool.submit(encode_video, f, host, copied))
 
     batch_enqueued_t = []
 
@@ -805,7 +805,7 @@ def _render_video_job(config: SceneConfig, devices, end_setup) -> dict:
             stack.enter_context(assembler)
         try:
             # One-batch lookahead: batch b + 1 is enqueued before batch b
-            # is recorded, so b's fetch, PNG and H.264 work overlaps
+            # is recorded, so b's fetch, PNG and video work overlaps
             # b + 1's rendering.
             inflight = None
             for b in range(n_batches):
@@ -831,7 +831,7 @@ def _render_video_job(config: SceneConfig, devices, end_setup) -> dict:
             # file: the stack closes it after the file is finished.
             stack.enter_context(span("video.finish"))
             try:
-                h264_pool.shutdown(wait=True)
+                video_pool.shutdown(wait=True)
             finally:
                 writer.close()
         end_t = time.time()

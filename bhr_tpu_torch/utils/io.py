@@ -1,5 +1,5 @@
 """Image and video IO: PNG save and load, the asynchronous frame writer,
-the inline H.264 assembler, the MJPEG AVI writer, disk texture loading.
+the MJPEG AVI writer, the inline video assembler, disk texture loading.
 
 The port of ``bhr_tpu/utils/io.py``. ``save_image`` writes PNGs through
 the native encoder (``native.save_png_rgb8``, level 2) where it built,
@@ -7,14 +7,15 @@ as ``bhr_tpu`` does, and otherwise through the standard library's
 ``zlib``. The reader needs nothing beyond the standard library
 (``zlib`` and ``struct``) and NumPy, so a host with neither Pillow nor
 imageio can save video frames and read them back (the assembler's
-catch-up on resume and the post-pass do). Pillow is imported only inside
-the two functions that need it: to read an explicit ``--disk_texture``
-file and to JPEG-encode the frames of the MJPEG AVI fallback.
+catch-up on resume and the post-pass do). Pillow is imported only where
+it is needed: to read an explicit ``--disk_texture`` file and to
+JPEG-encode the frames of the MJPEG AVI.
 """
 
 from __future__ import annotations
 
 import os
+import shutil
 import struct
 import zlib
 from concurrent.futures import Future, ThreadPoolExecutor
@@ -251,115 +252,173 @@ class AsyncPNGWriter:
             self._pool.shutdown(wait=True)
 
 
-def write_mjpeg_avi(
-    frame_paths: List[str], output_path: str, fps: int,
-    quality: int = 92,
-) -> None:
-    """Assemble PNG frames into an MJPEG AVI with no external encoder.
+def _chunk_header(fourcc: bytes, size: int) -> bytes:
+    return fourcc + struct.pack("<I", size)
 
-    The last resort of the assembly chain, for hosts without the native
-    H.264 writer or an ffmpeg CLI: every frame is JPEG-encoded with
-    Pillow and wrapped in a RIFF/AVI container with an idx1 index,
-    playable by ffplay, VLC and browsers and re-muxable to MP4 later
-    (``ffmpeg -i x.avi -c copy x.mp4``).
+
+class MJPEGAVIWriter:
+    """Streaming MJPEG AVI writer, with ``native.H264Writer``'s interface:
+    open on the frame size, ``write`` (H, W, 3) uint8 frames in order,
+    ``close`` to write the index and finish the headers, ``abort`` to
+    stop without them. A context manager: closes on success, aborts on
+    any in-flight exception.
+
+    The headers are written with placeholder sizes, each frame is
+    appended as one ``00dc`` chunk (peak memory is one frame), and
+    ``close`` writes the ``idx1`` index and patches the RIFF, movi, avih
+    and strh fields in place. The result is playable by ffplay, VLC and
+    browsers and re-muxable to MP4 later (``ffmpeg -i x.avi -c copy
+    x.mp4``).
+
+    Each frame is JPEG-encoded by Pillow straight into the open file:
+    into a real file Pillow's encoder holds no GIL for the whole encode
+    (into a ``BytesIO`` it takes the GIL back for every 64 KiB block), so
+    an encoder thread leaves the render loop's thread its speed. A file
+    ``abort`` left behind has no index and zero sizes in its headers.
     """
-    import io as _io
 
-    from PIL import Image
+    def __init__(self, path: str, width: int, height: int, fps: int,
+                 quality: int = 92):
+        from PIL import Image  # before the file is touched
 
-    if not frame_paths:
-        raise ValueError("no frames to assemble")
-    height, width = load_png_rgb8(frame_paths[0]).shape[:2]
-    n = len(frame_paths)
+        self._image = Image
+        self._width, self._height = int(width), int(height)
+        self._fps, self._quality = int(fps), quality
+        self._index = []  # (offset in the movi list, size) of each frame
+        self._offset = 4  # relative to the start of the 'movi' fourcc
+        self._max_size = 0
+        strf = struct.pack(
+            "<IiiHH4sIiiII",
+            40, self._width, self._height, 1, 24, b"MJPG",
+            self._width * self._height * 3, 0, 0, 0, 0,
+        )
+        hdrl_payload = (
+            b"hdrl"
+            + _chunk_header(b"avih", 56) + self._avih()
+            + _chunk_header(b"LIST", 4 + 8 + 56 + 8 + len(strf))
+            + b"strl"
+            + _chunk_header(b"strh", 56) + self._strh()
+            + _chunk_header(b"strf", len(strf)) + strf
+        )
+        self._fh = open(path, "wb")
+        self._fh.write(_chunk_header(b"RIFF", 0) + b"AVI ")
+        self._hdrl_at = self._fh.tell()
+        self._fh.write(_chunk_header(b"LIST", len(hdrl_payload)) + hdrl_payload)
+        self._movi_at = self._fh.tell()
+        self._fh.write(_chunk_header(b"LIST", 0) + b"movi")
 
-    def chunk_header(fourcc: bytes, size: int) -> bytes:
-        return fourcc + struct.pack("<I", size)
-
-    def pack_avih(max_size: int) -> bytes:
+    def _avih(self) -> bytes:
+        fps = self._fps
         return struct.pack(
             "<14I",
             int(1_000_000 / max(fps, 1)),  # microseconds per frame
-            max_size * fps,                # max bytes per second (bound)
+            self._max_size * fps,          # max bytes per second (bound)
             0,                             # padding granularity
             0x10,                          # AVIF_HASINDEX
-            n, 0, 1, max_size, width, height, 0, 0, 0, 0,
+            len(self._index), 0, 1, self._max_size, self._width,
+            self._height, 0, 0, 0, 0,
         )
 
-    def pack_strh(max_size: int) -> bytes:
+    def _strh(self) -> bytes:
         # dwQuality = -1 (the codec's default), dwSampleSize = 0 (required
         # for 'vids' streams: frames are variable-size).
         return struct.pack(
             "<4s4sIHHIIIIIIiI4H",
             b"vids", b"MJPG", 0, 0, 0, 0,
-            1, max(fps, 1),                # scale / rate -> fps
-            0, n, max_size, -1, 0,
-            0, 0, width, height,
+            1, max(self._fps, 1),          # scale / rate -> fps
+            0, len(self._index), self._max_size, -1, 0,
+            0, 0, self._width, self._height,
         )
 
-    strf = struct.pack(
-        "<IiiHH4sIiiII",
-        40, width, height, 1, 24, b"MJPG",
-        width * height * 3, 0, 0, 0, 0,
-    )
+    def write(self, frame: np.ndarray) -> None:
+        if self._fh is None:
+            raise RuntimeError("writer is closed")
+        if (frame.dtype != np.uint8
+                or frame.shape != (self._height, self._width, 3)):
+            raise ValueError(
+                f"expected ({self._height}, {self._width}, 3) uint8, got "
+                f"{frame.shape} {frame.dtype}")
+        fh = self._fh
+        at = fh.tell()
+        fh.write(_chunk_header(b"00dc", 0))
+        self._image.fromarray(np.ascontiguousarray(frame)).save(
+            fh, "JPEG", quality=self._quality)
+        end = fh.tell()
+        size = end - at - 8
+        fh.seek(at + 4)
+        fh.write(struct.pack("<I", size))
+        fh.seek(end)
+        # RIFF: ckSize excludes the odd-length pad byte, which is written
+        # after the declared payload (a padded-in ckSize makes strict
+        # re-muxers carry a trailing 0x00 into the JPEG stream).
+        if size % 2:
+            fh.write(b"\x00")
+        self._index.append((self._offset, size))
+        self._offset += 8 + size + size % 2
+        self._max_size = max(self._max_size, size)
 
-    # Streaming layout: headers are written with placeholder sizes,
-    # frames are JPEG-encoded and appended one at a time (peak memory
-    # is one frame, not the whole video), then the RIFF, movi, avih and
-    # strh size fields are patched in place.
+    def close(self) -> None:
+        if self._fh is None:
+            return
+        fh, self._fh = self._fh, None
+        with fh:
+            fh.write(_chunk_header(b"idx1", 16 * len(self._index)))
+            fh.write(b"".join(struct.pack("<4sIII", b"00dc", 0x10, off, size)
+                              for off, size in self._index))
+            riff_size = fh.tell() - 8
+            fh.seek(4)
+            fh.write(struct.pack("<I", riff_size))
+            # The offsets grew by 8 + payload + pad a chunk from 4 (the
+            # 'movi' fourcc): exactly the movi list's payload size.
+            fh.seek(self._movi_at + 4)
+            fh.write(struct.pack("<I", self._offset))
+            # hdrl layout: LIST(8) 'hdrl'(4) 'avih'+size(8) <avih 56>
+            #              LIST(8) 'strl'(4) 'strh'+size(8) <strh 56> ...
+            fh.seek(self._hdrl_at + 20)
+            fh.write(self._avih())
+            fh.seek(self._hdrl_at + 20 + 56 + 8 + 4 + 8)
+            fh.write(self._strh())
+
+    def abort(self) -> None:
+        """Close the file without its index or sizes."""
+        if self._fh is not None:
+            fh, self._fh = self._fh, None
+            fh.close()
+
+    def __enter__(self) -> "MJPEGAVIWriter":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        if exc_type is None:
+            self.close()
+        else:
+            self.abort()
+
+
+def mjpeg_avi_path(output_path: str) -> str:
+    """Where the MJPEG AVI of a video lands: ``output_path`` itself if it
+    is an ``.avi``, else the same name with ``.avi``."""
+    base, ext = os.path.splitext(output_path)
+    return output_path if ext.lower() == ".avi" else base + ".avi"
+
+
+def write_mjpeg_avi(
+    frame_paths: List[str], output_path: str, fps: int,
+    quality: int = 92,
+) -> None:
+    """Assemble PNG frames into an MJPEG AVI with no external encoder
+    (``MJPEGAVIWriter``): the post-pass's last resort, for hosts without
+    the native H.264 writer or an ffmpeg CLI."""
+    if not frame_paths:
+        raise ValueError("no frames to assemble")
+    first = load_png_rgb8(frame_paths[0])
+    height, width = first.shape[:2]
     os.makedirs(os.path.dirname(output_path) or ".", exist_ok=True)
-    with open(output_path, "wb") as fh:
-        fh.write(chunk_header(b"RIFF", 0) + b"AVI ")
-
-        hdrl_payload = (
-            b"hdrl"
-            + chunk_header(b"avih", 56) + pack_avih(0)
-            + chunk_header(b"LIST", 4 + 8 + 56 + 8 + len(strf))
-            + b"strl"
-            + chunk_header(b"strh", 56) + pack_strh(0)
-            + chunk_header(b"strf", len(strf)) + strf
-        )
-        hdrl_at = fh.tell()
-        fh.write(chunk_header(b"LIST", len(hdrl_payload)) + hdrl_payload)
-
-        movi_list_at = fh.tell()
-        fh.write(chunk_header(b"LIST", 0) + b"movi")
-
-        index = []  # (offset_in_movi, size)
-        offset = 4  # relative to the start of the 'movi' fourcc
-        max_size = 0
-        for p_frame in frame_paths:
-            buf = _io.BytesIO()
-            Image.fromarray(load_png_rgb8(p_frame), "RGB").save(
-                buf, "JPEG", quality=quality)
-            data = buf.getvalue()
-            # RIFF: ckSize excludes the odd-length pad byte, which is
-            # written after the declared payload (a padded-in ckSize
-            # makes strict re-muxers carry a trailing 0x00 into the
-            # JPEG stream).
-            pad = b"\x00" if len(data) % 2 else b""
-            fh.write(chunk_header(b"00dc", len(data)) + data + pad)
-            index.append((offset, len(data)))
-            offset += 8 + len(data) + len(pad)
-            max_size = max(max_size, len(data))
-
-        # offset accumulated 8 + payload + pad per chunk from a start of
-        # 4 (the 'movi' fourcc), which is exactly the LIST payload size.
-        movi_size = offset
-        fh.write(chunk_header(b"idx1", 16 * n))
-        for off, sz in index:
-            fh.write(struct.pack("<4sIII", b"00dc", 0x10, off, sz))
-
-        riff_size = fh.tell() - 8
-        fh.seek(4)
-        fh.write(struct.pack("<I", riff_size))
-        fh.seek(movi_list_at + 4)
-        fh.write(struct.pack("<I", movi_size))
-        # hdrl layout: LIST(8) 'hdrl'(4) 'avih'+size(8) <avih 56>
-        #              LIST(8) 'strl'(4) 'strh'+size(8) <strh 56> ...
-        fh.seek(hdrl_at + 20)
-        fh.write(pack_avih(max_size))
-        fh.seek(hdrl_at + 20 + 56 + 8 + 4 + 8)
-        fh.write(pack_strh(max_size))
+    with MJPEGAVIWriter(output_path, width, height, fps,
+                        quality=quality) as writer:
+        writer.write(first)
+        for path in frame_paths[1:]:
+            writer.write(load_png_rgb8(path))
 
 
 # Containers the native H.264 writer handles; shared by the inline
@@ -367,27 +426,38 @@ def write_mjpeg_avi(
 H264_CONTAINER_EXTS = (".mp4", ".mkv", ".mov")
 
 
-class IncrementalH264Assembler:
+class InlineVideoAssembler:
     """Encode the orbit video while frames render, from host memory.
 
     Each rendered frame is already in host memory when its PNG is
-    queued, so it is fed straight into the native H.264 writer
-    (``bhr_tpu_torch.native.H264Writer``); on an uninterrupted run the
-    video is finished the moment the last frame renders, and the
-    post-pass (which would decode every PNG again) never runs.
+    queued, so it is fed straight into a streaming writer; on an
+    uninterrupted run the video is finished the moment the last frame
+    renders, and the post-pass (which would decode every PNG again)
+    never runs. The writer is chosen once, at birth, from what the host
+    has, in the post-pass chain's order (``modes._assemble_video``):
+
+    - ``kind == "native"``: the native H.264 writer
+      (``bhr_tpu_torch.native.H264Writer``) at ``output_path``, where it
+      works and the output is an H.264 container;
+    - ``kind == "mjpeg"``: else, on a host with no ffmpeg CLI, the MJPEG
+      AVI writer (``MJPEGAVIWriter``) at ``mjpeg_avi_path(output_path)``,
+      the file the post-pass would write;
+    - ``kind is None``: else inert, and the post-pass runs ffmpeg.
+
+    ``path`` is the file it writes. Each ``submit`` is one span,
+    ``writers.h264`` or ``writers.mjpeg`` (``utils.profiling.SPANS``).
 
     The PNG frames stay the durability anchor, untouched:
 
     - resume: frames completed by an earlier run exist only on
       disk; ``submit`` catches up by decoding the gap frames (in index
       order) before encoding the fresh one.
-    - interruption or any encode error: the writer is aborted (no MP4
-      trailer, see ``H264Writer.abort``) and the partial file removed;
-      ``finalize`` then reports False and the caller falls back to the
-      post-pass assembler chain.
-    - unavailability (no native codec, odd dimensions, an output that
-      is not an H.264 container): the assembler is inert from birth and
-      ``finalize`` returns False.
+    - interruption or any encode error: the writer is aborted (no
+      trailer or index) and the partial file removed; ``finalize`` then
+      reports False and the caller falls back to the post-pass chain.
+    - unavailability (neither writer, odd dimensions for H.264, no
+      Pillow for MJPEG): the assembler is inert and ``finalize`` returns
+      False.
 
     Frames are quantized with the same ``quantize_frame`` as the PNG
     writer, so the inline video holds the pixels a post-pass one would.
@@ -400,34 +470,44 @@ class IncrementalH264Assembler:
 
     def __init__(self, output_path: str, n_frames: int, fps: int,
                  temp_dir: str, crf: int = 18):
-        self._path = output_path
         self._n = n_frames
         self._fps = fps
         self._crf = crf
         self._dir = temp_dir
         self._writer = None
         self._next = 0
-        # True once this run touched the file at output_path:
-        # discard() must never delete a video this run did not open
-        # (e.g. an inert assembler and Ctrl-C).
+        # True once this run touched the file at self.path: discard()
+        # must never delete a video this run did not open (e.g. an inert
+        # assembler and Ctrl-C).
         self._opened = False
         ext = os.path.splitext(output_path)[1].lower()
-        self._dead = (ext not in H264_CONTAINER_EXTS
-                      or not native.video_available())
+        if ext in H264_CONTAINER_EXTS and native.video_available():
+            self.kind, self.path = "native", output_path
+        elif shutil.which("ffmpeg") is None:
+            self.kind, self.path = "mjpeg", mjpeg_avi_path(output_path)
+        else:
+            self.kind, self.path = None, output_path
+        self._dead = self.kind is None
+
+    def _open(self, width: int, height: int):
+        # What makes a writer refuse the frames is checked before the
+        # filesystem is touched: a condition that makes the assembler
+        # inert must not mark the output file as this run's.
+        if self.kind == "native" and ((height % 2) or (width % 2)):
+            raise ValueError(f"odd dimensions {width}x{height} for yuv420p")
+        if self.kind == "mjpeg":
+            import PIL.Image  # noqa: F401  (the writer's one dependency)
+        os.makedirs(os.path.dirname(self.path) or ".", exist_ok=True)
+        # From here the open may create or truncate the file.
+        self._opened = True
+        if self.kind == "native":
+            return native.H264Writer(self.path, width, height, self._fps,
+                                     crf=self._crf)
+        return MJPEGAVIWriter(self.path, width, height, self._fps)
 
     def _encode(self, rgb: np.ndarray) -> None:
         if self._writer is None:
-            h, w = rgb.shape[:2]
-            if (h % 2) or (w % 2):
-                # Checked before the filesystem is touched: a condition
-                # that makes the assembler inert must not mark the
-                # output file as this run's.
-                raise ValueError(f"odd dimensions {w}x{h} for yuv420p")
-            os.makedirs(os.path.dirname(self._path) or ".", exist_ok=True)
-            # From here the native open may create or truncate the file.
-            self._opened = True
-            self._writer = native.H264Writer(self._path, w, h, self._fps,
-                                             crf=self._crf)
+            self._writer = self._open(rgb.shape[1], rgb.shape[0])
         self._writer.write(rgb)
         self._next += 1
 
@@ -446,7 +526,8 @@ class IncrementalH264Assembler:
         if self._dead or frame_idx >= self._n:
             return
         try:
-            with span("writers.h264"):
+            with span("writers.h264" if self.kind == "native"
+                      else "writers.mjpeg"):
                 self._catch_up(frame_idx)
                 self._encode(quantize_frame(np.asarray(image)))
         except Exception as exc:
@@ -455,7 +536,7 @@ class IncrementalH264Assembler:
 
     def finalize(self) -> bool:
         """Close the container. True = the video is complete at
-        output_path; False = the caller must run the post-pass chain."""
+        ``path``; False = the caller must run the post-pass chain."""
         if self._dead:
             return False
         try:
@@ -475,13 +556,14 @@ class IncrementalH264Assembler:
         """One line when inline assembly dies: without it the post-pass
         fallback would take over in silence."""
         if not self._dead:
-            print(f"inline H.264 assembly failed at frame {self._next} "
+            what = "H.264" if self.kind == "native" else "MJPEG AVI"
+            print(f"inline {what} assembly failed at frame {self._next} "
                   f"({exc!r}); the post-pass assembler will run instead")
 
     def discard(self) -> None:
-        """Abort without a trailer and, if this run wrote to the
-        output path, remove the partial file (a video this run did not
-        open is never deleted). Idempotent; the PNG frames are untouched."""
+        """Abort without a trailer or index and, if this run wrote to
+        ``path``, remove the partial file (a video this run did not open
+        is never deleted). Idempotent; the PNG frames are untouched."""
         if self._writer is not None:
             writer, self._writer = self._writer, None
             writer.abort()
@@ -489,11 +571,11 @@ class IncrementalH264Assembler:
         if self._opened:
             self._opened = False
             try:
-                os.remove(self._path)
+                os.remove(self.path)
             except OSError:
                 pass
 
-    def __enter__(self) -> "IncrementalH264Assembler":
+    def __enter__(self) -> "InlineVideoAssembler":
         return self
 
     def __exit__(self, exc_type, exc, tb) -> None:

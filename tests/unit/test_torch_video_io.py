@@ -1,16 +1,19 @@
 """The port's video writers: PNG codec, the asynchronous frame writer,
-the inline H.264 assembler, the native libavcodec writer and the MJPEG
-AVI fallback.
+the inline video assembler, the native libavcodec writer and the MJPEG
+AVI writer.
 
 * ``decode_png_rgb8`` against Pillow on files written with each of the
   five PNG scanline filters (and a mix), on a Pillow-written file and on
   the port's own: equal pixels. Files it does not read raise ValueError.
 * ``write_mjpeg_avi`` and the fallback chain: the conditions of
   ``tests/unit/test_video_assembly.py`` (RIFF structure, decodable JPEG
-  frames, an AVI beside the MP4 when no H.264 writer exists).
-* ``IncrementalH264Assembler`` with a stub in place of the native
-  writer: inert on ``.avi``, catch-up from PNGs in index order, a failed
-  encode goes inert and removes only a file this run opened.
+  frames, an AVI beside the MP4 when no H.264 writer exists); through
+  the shared ``MJPEGAVIWriter`` it writes ``bhr_tpu``'s bytes, for JPEGs
+  of even and of odd sizes.
+* ``InlineVideoAssembler`` with a stub in place of the native
+  writer: native H.264, the MJPEG AVI or inert, in the post-pass chain's
+  order; catch-up from PNGs in index order, a failed encode goes inert
+  and removes only a file this run opened.
 * ``H264Writer`` round trip (where the host has libavcodec with an
   H.264 encoder, else skipped): frame count and size from
   ``probe_video``, the first frame back within H.264's loss.
@@ -34,7 +37,7 @@ from bhr_tpu_torch.utils import io as tio
 from bhr_tpu_torch.utils.profiling import SPANS
 from bhr_tpu_torch.utils.io import (
     AsyncPNGWriter,
-    IncrementalH264Assembler,
+    InlineVideoAssembler,
     decode_png_rgb8,
     encode_png_rgb8,
     load_png_rgb8,
@@ -272,6 +275,54 @@ def test_mjpeg_avi_structure_and_frames(tmp_path):
         write_mjpeg_avi([], out, fps=2)
 
 
+def _jpeg_size(img, quality=92):
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, "JPEG", quality=quality)
+    return len(buf.getvalue())
+
+
+@pytest.mark.parametrize("parity", [0, 1], ids=["even", "odd"])
+def test_mjpeg_avi_is_bhr_tpus_bytes(tmp_path, parity):
+    """The shared writer, through ``write_mjpeg_avi``, writes the file
+    ``bhr_tpu``'s writer does; frames whose JPEGs are all of one parity
+    (odd ones carry the RIFF pad byte)."""
+    pytest.importorskip("PIL.Image")
+    from bhr_tpu.utils.io import write_mjpeg_avi as bhr_tpu_write_mjpeg_avi
+
+    frames = [img for img in (_image(h=18, w=32, seed=s) for s in range(40))
+              if _jpeg_size(img) % 2 == parity][:3]
+    assert len(frames) == 3
+    paths = []
+    for i, img in enumerate(frames):
+        paths.append(str(tmp_path / f"frame_{i:04d}.png"))
+        save_image(img, paths[-1])
+    ours, theirs = str(tmp_path / "ours.avi"), str(tmp_path / "theirs.avi")
+    write_mjpeg_avi(paths, ours, fps=5)
+    bhr_tpu_write_mjpeg_avi(paths, theirs, fps=5)
+    with open(ours, "rb") as a, open(theirs, "rb") as b:
+        assert a.read() == b.read()
+
+
+def test_mjpeg_writer_refuses_a_wrong_frame_and_abort_stops(tmp_path):
+    pytest.importorskip("PIL.Image")
+    path = str(tmp_path / "v.avi")
+    writer = tio.MJPEGAVIWriter(path, 6, 4, fps=2)
+    with pytest.raises(ValueError, match=r"expected \(4, 6, 3\) uint8"):
+        writer.write(np.zeros((4, 8, 3), np.uint8))
+    with pytest.raises(ValueError, match="uint8"):
+        writer.write(np.zeros((4, 6, 3), np.float32))
+    writer.write(_value_frame(7))
+    writer.abort()
+    with pytest.raises(RuntimeError, match="closed"):
+        writer.write(_value_frame(7))
+    writer.close()  # after abort: nothing to finish
+    with open(path, "rb") as f:
+        data = f.read()
+    assert data.find(b"idx1") < 0 and struct.unpack("<I", data[4:8])[0] == 0
+
+
 def test_assemble_video_falls_back_to_avi(tmp_path, monkeypatch, capsys):
     pytest.importorskip("PIL.Image")
     import bhr_tpu_torch.modes as modes
@@ -305,7 +356,7 @@ def test_assemble_video_keeps_frames_when_every_assembler_fails(
     assert all(os.path.exists(p) for p in paths)
 
 
-# -- IncrementalH264Assembler with a stub writer -----------------------------
+# -- InlineVideoAssembler with a stub writer ---------------------------------
 
 
 class _StubWriter:
@@ -354,7 +405,7 @@ def test_assembler_catches_up_from_pngs_in_index_order(tmp_path, stub_native):
         save_image(_value_frame(10 * f), str(tmp_path / f"frame_{f:04d}.png"))
     out = str(tmp_path / "out" / "v.mp4")
     mark = SPANS.mark()
-    with IncrementalH264Assembler(out, 5, 24, str(tmp_path), crf=20) as asm:
+    with InlineVideoAssembler(out, 5, 24, str(tmp_path), crf=20) as asm:
         asm.submit(2, _value_frame(20).astype(np.float32) / 255.0)
         asm.submit(4, _value_frame(40))
         asm.submit(5, _value_frame(50))  # beyond n_frames: ignored
@@ -370,21 +421,53 @@ def test_assembler_catches_up_from_pngs_in_index_order(tmp_path, stub_native):
 def test_assembler_finalize_reads_trailing_frames(tmp_path, stub_native):
     for f in (1, 2):
         save_image(_value_frame(10 * f), str(tmp_path / f"frame_{f:04d}.png"))
-    asm = IncrementalH264Assembler(str(tmp_path / "v.mkv"), 3, 24, str(tmp_path))
+    asm = InlineVideoAssembler(str(tmp_path / "v.mkv"), 3, 24, str(tmp_path))
     asm.submit(0, _value_frame(0))
     assert asm.finalize() is True
     assert stub_native.instances[0].frames == [0, 10, 20]
 
 
+@pytest.mark.parametrize("ext, codec, ffmpeg, kind, path", [
+    (".mp4", True, False, "native", "v.mp4"),
+    (".mkv", True, True, "native", "v.mkv"),
+    (".mp4", False, False, "mjpeg", "v.avi"),
+    (".avi", True, False, "mjpeg", "v.avi"),
+    (".mp4", False, True, None, "v.mp4"),
+    (".avi", True, True, None, "v.avi"),
+])
+def test_assembler_picks_its_writer_in_the_chains_order(
+        tmp_path, stub_native, monkeypatch, ext, codec, ffmpeg, kind, path):
+    """Native H.264 where it can write the container, else the MJPEG AVI
+    where no ffmpeg CLI would come before it, else inert (the post-pass
+    runs ffmpeg): the post-pass chain's order, chosen at birth."""
+    monkeypatch.setattr(native, "video_available", lambda: codec)
+    monkeypatch.setattr(tio.shutil, "which",
+                        lambda name: "/usr/bin/ffmpeg" if ffmpeg else None)
+    asm = InlineVideoAssembler(str(tmp_path / ("v" + ext)), 2, 24, str(tmp_path))
+    assert (asm.kind, asm.path) == (kind, str(tmp_path / path))
+    asm.submit(0, _value_frame(0))
+    asm.submit(1, _value_frame(1))
+    assert asm.finalize() is (kind is not None)
+    assert len(stub_native.instances) == (kind == "native")
+    assert os.path.exists(asm.path) is (kind is not None)
+    if kind == "mjpeg":
+        with open(asm.path, "rb") as f:
+            data = f.read()
+        assert data[:4] == b"RIFF" and data.count(b"00dc") == 2 + 2  # idx1 too
+
+
 @pytest.mark.parametrize("why", ["avi", "no_codec", "odd"])
 def test_assembler_inert_never_touches_an_existing_video(tmp_path, stub_native,
                                                          monkeypatch, why):
+    # With no H.264 writer for the output, only a host with an ffmpeg CLI
+    # leaves the assembler inert (without one it writes the MJPEG AVI).
+    monkeypatch.setattr(tio.shutil, "which", lambda name: "/usr/bin/" + name)
     if why == "no_codec":
         monkeypatch.setattr(native, "video_available", lambda: False)
     out = str(tmp_path / ("v.avi" if why == "avi" else "v.mp4"))
     with open(out, "wb") as f:
         f.write(b"an earlier run's finished video")
-    asm = IncrementalH264Assembler(out, 2, 24, str(tmp_path))
+    asm = InlineVideoAssembler(out, 2, 24, str(tmp_path))
     frame = _value_frame(1, h=5) if why == "odd" else _value_frame(1)
     asm.submit(0, frame)
     asm.submit(1, frame)
@@ -399,7 +482,7 @@ def test_assembler_failed_encode_removes_its_own_partial_file(
         tmp_path, stub_native, monkeypatch, capsys):
     monkeypatch.setattr(_StubWriter, "fail_at", 1)
     out = str(tmp_path / "v.mp4")
-    asm = IncrementalH264Assembler(out, 3, 24, str(tmp_path))
+    asm = InlineVideoAssembler(out, 3, 24, str(tmp_path))
     asm.submit(0, _value_frame(0))
     assert os.path.exists(out)
     asm.submit(1, _value_frame(1))  # fails: goes inert, never raises
@@ -413,7 +496,7 @@ def test_assembler_failed_encode_removes_its_own_partial_file(
 def test_assembler_discards_on_exception_in_its_block(tmp_path, stub_native):
     out = str(tmp_path / "v.mp4")
     with pytest.raises(KeyboardInterrupt):
-        with IncrementalH264Assembler(out, 3, 24, str(tmp_path)) as asm:
+        with InlineVideoAssembler(out, 3, 24, str(tmp_path)) as asm:
             asm.submit(0, _value_frame(0))
             raise KeyboardInterrupt
     assert stub_native.instances[0].state == "aborted"
