@@ -60,10 +60,10 @@ With the NaN trap on (``utils/nans.py``) the stages of a frame check
 their outputs with the prefix ``video/``: ``video/background`` (a
 device's pass over a batch), ``video/disk_texture``, ``video/disk_stats``,
 ``video/mips`` (with AA), ``video/trace[<instantiation>]``,
-``video/shade`` (``video/shade_v2``) and ``video/post`` (the frame
-before it is quantized to uint8); ``render_video_sharded`` adds
-``video/skybox``. The interactive session's frame runs here and checks
-the same stages.
+``video/shade`` (``video/shade_v2``), ``video/post`` (bloom and the
+clamp) and, with the flare, ``video/flare`` (the frame before it is
+quantized to uint8); ``render_video_sharded`` adds ``video/skybox``.
+The interactive session's frame runs here and checks the same stages.
 """
 
 from __future__ import annotations
@@ -102,6 +102,7 @@ from ..models.lifecycle import (
 from ..models.skybox import load_or_generate_skybox
 from ..ops.background import generate_background_components
 from ..ops.geodesic_cuda import kernel_name, trace_geodesics_cuda
+from ..ops.lens_flare import apply_lens_flare
 from ..ops.sampling import build_mipmaps
 from ..pipeline import (
     MIP_LEVELS,
@@ -132,13 +133,20 @@ from .mesh import (
 
 # The stages of one frame, in the order ``on_stage`` reports them;
 # "background" is reported once per device and batch, before its frames.
-# A V2 frame has no background and no texture stage.
-STAGES = ("texture", "trace", "shade", "post")
+# A V2 frame has no background and no texture stage; "mips" (the disk
+# texture's pyramid) runs only with AA and "flare" (the lens flare and
+# the uint8 quantise, which "post" does otherwise) only with the flare.
+STAGES = ("texture", "mips", "trace", "shade", "post", "flare")
 
 
 def frame_stages(config: SceneConfig) -> tuple:
     """The stages ``on_stage`` reports for each frame of ``config``."""
-    return STAGES[1:] if config.disk_model == "v2" else STAGES
+    left_out = {"texture"} if config.disk_model == "v2" else set()
+    if not config.use_ray_differentials:
+        left_out.add("mips")
+    if not config.lens_flare:
+        left_out.add("flare")
+    return tuple(s for s in STAGES if s not in left_out)
 
 
 @spanned("lifecycle.pack")
@@ -247,6 +255,11 @@ def build_sharded_video_renderer(
         with_differentials=use_diff, record_hits=True,
         record_step_counts=False))
 
+    def quantize(final):
+        # uint8 on the device: a quarter of the bytes to fetch, and what
+        # the PNG wants; round half to even, as bhr_tpu's jnp.round.
+        return torch.round(final * 255.0).to(torch.uint8)
+
     @contextlib.contextmanager
     def frame_stage(name, mark):
         """One stage of a frame: the span ``frame.<name>`` on the host's
@@ -271,11 +284,11 @@ def build_sharded_video_renderer(
                     color_temp=DISK_COLOR_TEMPERATURE, background=background,
                     solo_idx=solo_idx, stage_prefix="video/",
                 )
-                if use_diff:
+                mips = tex[None]
+            if use_diff:
+                with frame_stage("mips", mark):
                     mips = build_mipmaps(tex, levels=MIP_LEVELS)
                     check_nans("video/mips", mips)
-                else:
-                    mips = tex[None]
         with frame_stage("trace", mark):
             trace = trace_geodesics_cuda(
                 cam, width=width, height=height,
@@ -304,13 +317,18 @@ def build_sharded_video_renderer(
                     use_lod=use_diff, aa_strength=float(cfg.aa_strength),
                 )
                 check_nans("video/shade", bg, disk)
+        disk = disk.reshape(shape)
         with frame_stage("post", mark):
-            final = post_process(bg.reshape(shape), disk.reshape(shape),
-                                 use_bloom, cfg.lens_flare)
+            final = post_process(bg.reshape(shape), disk, use_bloom, False)
             check_nans("video/post", final)
-            # uint8 on the device: a quarter of the bytes to fetch, and what
-            # the PNG wants; round half to even, as bhr_tpu's jnp.round.
-            out = torch.round(final * 255.0).to(torch.uint8)
+            if not cfg.lens_flare:
+                out = quantize(final)
+        if cfg.lens_flare:
+            # post_process's own last step, as a stage of its own.
+            with frame_stage("flare", mark):
+                final = apply_lens_flare(final, disk)
+                check_nans("video/flare", final)
+                out = quantize(final)
         return out
 
     def render(skybox, cam_pack, t_arr, fil, hs, rt, on_frame=None,
@@ -542,12 +560,12 @@ def render_video_sharded(config: SceneConfig, devices=None) -> dict:
     enqueueing to the end; None for a single batch), ``assembler``
     ("native", "ffmpeg", "mjpeg" or "none"; None on the processes of a
     fleet that do not assemble), ``stage_ms`` (per-frame medians:
-    background (a batch's pass over its frames), texture, trace, shade,
-    post on the device's clock, fetch on the copy stream's, png, h264
-    and hit_sync (``frame.hit_sync``, the shade's wait for the trace) on
-    the host's; a V2 video has no background and no texture entry; and
-    the job's four top-level spans on the host's clock, each its total
-    over the frames rendered: job_setup (entry to the first batch's
+    background (a batch's pass over its frames) and each of
+    ``frame_stages(config)`` on the device's clock, fetch on the copy
+    stream's, png, h264 and hit_sync (``frame.hit_sync``, the shade's
+    wait for the trace) on the host's; a V2 video has no background
+    entry; and the job's four top-level spans on the host's clock, each
+    its total over the frames rendered: job_setup (entry to the first batch's
     enqueue), enqueue (the batches' enqueue), record (each batch's PNGs
     waited for and recorded) and finish (the writers' drain and the
     video file)) and ``writer_wait_s`` (how long the main thread waited
