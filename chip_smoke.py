@@ -14,7 +14,16 @@ exits non-zero without printing a result:
    its instructions, the MUFU ones and the FFMA/FADD/FMUL ones, and the
    fewest instructions (MUFU ones) a surviving and a terminating step
    issue (``bhr_tpu_torch.bench.parse_sass_loops``); the SMs and their
-   maximum clock, for the issue bounds of phase 5;
+   maximum clock, for the issue bounds of phase 5; (2b) the
+   background-noise kernel (``csrc/background_noise.cu``, ptxas
+   registers, a spill fails the run) against its plain version at the
+   FHD (2912x416, s = 2) and 4K (5824x832, s = 4) textures, one frame at
+   t = 0 and 7.3 and a video batch's four frames: unequal values by
+   plane (0 expected), max |diff| within 1e-5, one launch a pass, the
+   kernel's ms beside its bound (the plain version's FP32 operations, one
+   a lane and a clock) and, not as a bound, beside the plain version's
+   int32 operations at 64 INT32 lanes an SM, the plain pass's ms and aten
+   calls (``background_phase``);
 3. every instantiation (slim, AA, no disk, and each with step counts) vs
    its plain PyTorch version on the card, at the 128x32 tilt-15 parity
    scene and at the 320x180 golden scene, with the tolerances of
@@ -228,14 +237,24 @@ exits non-zero without printing a result:
    --orbit`` exit 0 the same way;
 14. a JSON line describing every instantiation at FHD (kernel, plain
    version, FP32-operation bound and issue bound times; ``launches`` sums
-   the paths of phases 5, 6c, 6d, 7d, 8, 9, 10c, 11, 12 and 13a), then
-   the result line ``{"ok": true, "device": {...}}`` as the last line.
+   the paths of phases 5, 6c, 6d, 7d, 8, 9, 10c, 11, 12 and 13a) and of
+   the background-noise kernel at phase 2b's FHD frame (its ``launches``
+   summed over the same paths; its issue bound null, not worked out; no
+   pass on the card may have run the plain version), then the result
+   line ``{"ok": true, "device": {...}}`` as the last line.
+
+Every path counted from 0 around it checks the background-noise
+kernel's launches beside the ray march's (``KernelLaunches``): one a
+lifecycle still or session step, one a card a lifecycle video batch (the
+batches counted by ``counted_batches``; a fleet's worker counts its
+own), none for the V2 disk or a static disk texture.
 
 Imports torch, numpy and bhr_tpu_torch only.
 """
 
 from __future__ import annotations
 
+import collections.abc
 import contextlib
 import io
 import json
@@ -503,30 +522,80 @@ def check_pair(tag, name, result, exact, outliers_allowed):
     return d
 
 
-def expect_launches(counts: dict, name: str, what: str) -> None:
-    others = {k: v for k, v in counts.items() if k != name and v}
-    check(counts[name] == 1 and not others,
-          f"{what} launched {counts}, expected {name} exactly once")
+BACKGROUND = "background_noise"  # the background-noise kernel's count
+
+
+class KernelLaunches(collections.abc.Mapping):
+    """The launches of every hand-written kernel since the last
+    ``reset()``: each ray-march instantiation's
+    (``trace_geodesics_cuda.launches``) and, under ``BACKGROUND``, the
+    background-noise kernel's (``generate_background_components.launches``).
+    A check that no other kernel ran thus covers the noise too: a path
+    states how many noise passes it makes (one a lifecycle still or
+    session step, one a card a video batch, none for V2 or a static
+    disk)."""
+
+    def __init__(self):
+        from bhr_tpu_torch.ops.background import generate_background_components
+        from bhr_tpu_torch.ops.geodesic_cuda import trace_geodesics_cuda
+
+        self._trace = trace_geodesics_cuda.launches  # per instantiation
+        self._background = generate_background_components
+
+    def __getitem__(self, name):
+        return self._background.launches if name == BACKGROUND else self._trace[name]
+
+    def __iter__(self):
+        return iter((*self._trace, BACKGROUND))
+
+    def __len__(self):
+        return len(self._trace) + 1
+
+    def reset(self):
+        self._trace.update(dict.fromkeys(self._trace, 0))
+        self._background.launches = 0
+
+
+def expect_launches(counts: dict, name: str, what: str, background: int = 0) -> None:
+    others = {k: v for k, v in counts.items() if k not in (name, BACKGROUND) and v}
+    check(counts[name] == 1 and counts[BACKGROUND] == background and not others,
+          f"{what} launched {counts}, expected {name} exactly once and "
+          f"{BACKGROUND} {background} times")
 
 
 @contextlib.contextmanager
-def counted_plain_traces():
-    """Counts the plain trace's calls made through the kernel's wrapper
-    while the block runs -> a one-element list holding the count."""
-    from bhr_tpu_torch.ops import geodesic_cuda
-
+def counted_calls(module, name):
+    """Counts the calls of ``module.<name>`` made while the block runs ->
+    a one-element list holding the count."""
     calls = [0]
-    real = geodesic_cuda.trace_geodesics
+    real = getattr(module, name)
 
     def counted(*args, **kwargs):
         calls[0] += 1
         return real(*args, **kwargs)
 
-    geodesic_cuda.trace_geodesics = counted
+    setattr(module, name, counted)
     try:
         yield calls
     finally:
-        geodesic_cuda.trace_geodesics = real
+        setattr(module, name, real)
+
+
+def counted_batches():
+    """The batched video engine's batches (``render_video_frames_sharded``
+    calls), counted as ``counted_calls``. A lifecycle batch makes one
+    background-noise pass on each card."""
+    from bhr_tpu_torch.parallel import video
+
+    return counted_calls(video, "render_video_frames_sharded")
+
+
+def counted_plain_traces():
+    """The plain trace's calls made through the kernel's wrapper, counted
+    as ``counted_calls``."""
+    from bhr_tpu_torch.ops import geodesic_cuda
+
+    return counted_calls(geodesic_cuda, "trace_geodesics")
 
 
 def static_stage_times(cfg, frames: int = 4):
@@ -761,10 +830,12 @@ def check_band(name, full, w, h, fov, tilt, h_base, r_escape, r_inner, r_outer,
     return ms
 
 
-def tile_phase(launches, reset_counts) -> tuple:
+def tile_phase(launches, reset_counts) -> dict:
     """Phases 6b and 6c on cuda:0..TILES-1 where that many cards are
-    visible, else on cuda:0 alone, then phase 6d; -> (the 4K path's
-    ray_march_aa launches, the V2 stills' ray_march_slim band launches)."""
+    visible, else on cuda:0 alone, then phase 6d; -> {kernel: launches of
+    the 4K path (ray_march_aa, its one background pass) and of the V2
+    stills (their ray_march_slim bands)}. A tiled lifecycle still makes
+    its background noise once, for all its bands."""
     import bhr_tpu_torch.cli as cli
     from bhr_tpu_torch.config import SceneConfig
     from bhr_tpu_torch.modes import render_image
@@ -791,15 +862,18 @@ def tile_phase(launches, reset_counts) -> tuple:
             device="cuda", **{**GOLDEN, **extra}))).max()
         say(f"[tiles golden {scene}] vs e2e_cpu{suffix}.npz max {diff.max():.3e} "
             f"mean {diff.mean():.3e}; vs the whole frame max {whole:.3e}; "
-            f"{expected} launches {launched[expected]}")
+            f"{expected} launches {launched[expected]}, {BACKGROUND} "
+            f"{launched[BACKGROUND]}")
         check(img.shape == (180, 320, 3) and np.isfinite(img).all(),
               f"tiled golden {scene} shape/finite")
         check(diff.max() <= 5e-2 and diff.mean() <= 5e-4,
               f"tiled golden {scene} outside bounds")
-        others = {k: v for k, v in launched.items() if k != expected and v}
-        check(launched[expected] == TILES and not others,
+        others = {k: v for k, v in launched.items()
+                  if k not in (expected, BACKGROUND) and v}
+        check(launched[expected] == TILES and launched[BACKGROUND] == 1
+              and not others,
               f"tiled golden {scene} launched {launched}, expected {expected} "
-              f"{TILES} times")
+              f"{TILES} times and {BACKGROUND} once")
 
     # 6c. the tile path at full width: the 4K AA + flare still in bands,
     # against the same frame rendered whole on the same card.
@@ -812,11 +886,14 @@ def tile_phase(launches, reset_counts) -> tuple:
     tiled = render_image_tiled(cfg_4k, devices=tile_devs)
     t_tiled = time.perf_counter() - t0
     launched = dict(launches)
-    others = {k: v for k, v in launched.items() if k != "ray_march_aa" and v}
+    others = {k: v for k, v in launched.items()
+              if k not in ("ray_march_aa", BACKGROUND) and v}
     say(f"[tiles 4k] {' '.join(flags_4k)} --tile_shards {TILES}: "
-        f"{t_tiled:.2f} s; ray_march_aa launches {launched['ray_march_aa']}")
-    check(launched["ray_march_aa"] == TILES and not others,
-          f"4K tiled frame launched {launched}, expected ray_march_aa {TILES} times")
+        f"{t_tiled:.2f} s; ray_march_aa launches {launched['ray_march_aa']}, "
+        f"{BACKGROUND} {launched[BACKGROUND]}")
+    check(launched["ray_march_aa"] == TILES and launched[BACKGROUND] == 1
+          and not others, f"4K tiled frame launched {launched}, expected "
+          f"ray_march_aa {TILES} times and {BACKGROUND} once")
     t0 = time.perf_counter()
     whole = render_image(whole_4k)
     t_whole = time.perf_counter() - t0
@@ -845,8 +922,9 @@ def tile_phase(launches, reset_counts) -> tuple:
             f"{sum(med.values()):.3f}; peak memory {peak / 2**30:.3f} GiB")
         del frame
     del tiled
-    return launched["ray_march_aa"], v2_tile_phase(launches, reset_counts,
-                                                    tile_devs)
+    return {"ray_march_aa": launched["ray_march_aa"],
+            BACKGROUND: launched[BACKGROUND],
+            "ray_march_slim": v2_tile_phase(launches, reset_counts, tile_devs)}
 
 
 def v2_tile_phase(launches, reset_counts, tile_devs) -> int:
@@ -909,28 +987,30 @@ class _Tee(io.StringIO):
         return super().write(text)
 
 
-def expect_video_launches(counts, name, n, plain_calls, what):
-    others = {k: v for k, v in counts.items() if k != name and v}
-    check(counts[name] == n and not others and not plain_calls[0],
+def expect_video_launches(counts, name, n, background, plain_calls, what):
+    others = {k: v for k, v in counts.items() if k not in (name, BACKGROUND) and v}
+    check(counts[name] == n and counts[BACKGROUND] == background and not others
+          and not plain_calls[0],
           f"{what} launched {counts} and ran the plain trace {plain_calls[0]} "
-          f"times, expected {name} {n} times and nothing else")
+          f"times, expected {name} {n} times, {BACKGROUND} {background} times "
+          f"and nothing else")
 
 
 def cli_video(argv, reset, launches):
     """``cli.main(argv)`` of a video, with the counts set to 0 just before
     (``reset``) and read just after -> (its "Video stats:" line as a
-    dict, the launches)."""
+    dict, the launches, the batched engine's batches)."""
     import bhr_tpu_torch.cli as cli
 
     tee = _Tee()
     reset()
-    with contextlib.redirect_stdout(tee):
+    with contextlib.redirect_stdout(tee), counted_batches() as batches:
         check(cli.main(argv) == 0, "CLI exit code")
     launched = dict(launches)
     lines = [ln for ln in tee.getvalue().splitlines()
              if ln.startswith("Video stats: ")]
     check(len(lines) == 1, f"{' '.join(argv)}: no stats line")
-    return json.loads(lines[0][len("Video stats: "):]), launched
+    return json.loads(lines[0][len("Video stats: "):]), launched, batches[0]
 
 
 def video_phase(launches, reset_counts) -> tuple:
@@ -950,13 +1030,18 @@ def video_phase(launches, reset_counts) -> tuple:
         write_json_atomic,
     )
 
-    # Every call of the plain trace is counted while the videos render.
+    # Every call of the plain trace, and every batch of the batched
+    # engine, is counted while the videos render. The golden videos run on
+    # one card (frame_shards 1): a lifecycle batch is one background pass,
+    # a sequential frame one, a V2 frame none.
     counting = contextlib.ExitStack()
     plain_calls = counting.enter_context(counted_plain_traces())
+    batches = counting.enter_context(counted_batches())
 
     def reset():
         reset_counts()
         plain_calls[0] = 0
+        batches[0] = 0
 
     def frame_files(cfg):
         temp_dir, progress_file = video_temp_paths(cfg.output)
@@ -1021,7 +1106,8 @@ def video_phase(launches, reset_counts) -> tuple:
         check(diff.max() <= 5e-2 and diff.mean() <= 5e-4,
               "golden video outside bounds")
         check(stats["frames"] == 8 and stats["padded"] == 0, f"golden video {stats}")
-        expect_video_launches(launched, "ray_march_slim", 8, plain_calls,
+        check(batches[0] == 1, f"golden video: {batches[0]} batches")
+        expect_video_launches(launched, "ray_march_slim", 8, 1, plain_calls,
                               "golden video")
         one_batch = read_bytes(paths)
 
@@ -1029,7 +1115,8 @@ def video_phase(launches, reset_counts) -> tuple:
         cfg = video_cfg("resume", frames_per_dispatch=4)
         reset()
         render_video_sharded(cfg)
-        expect_video_launches(dict(launches), "ray_march_slim", 8, plain_calls,
+        check(batches[0] == 2, f"video in batches of 4: {batches[0]} batches")
+        expect_video_launches(dict(launches), "ray_march_slim", 8, 2, plain_calls,
                               "video in batches of 4")
         paths, progress_file = frame_files(cfg)
         whole = read_bytes(paths)
@@ -1049,7 +1136,8 @@ def video_phase(launches, reset_counts) -> tuple:
             f"of 8 PNGs byte-equal to the uninterrupted run's; assembler "
             f"{stats['assembler']}")
         check(stats["frames"] == 4, f"resume rendered {stats['frames']} frames")
-        expect_video_launches(launched, "ray_march_slim", 4, plain_calls, "resume")
+        expect_video_launches(launched, "ray_march_slim", 4, 1, plain_calls,
+                              "resume")
         check(resumed == whole, "resumed PNGs differ from the uninterrupted run's")
         reset()
         stats = render_video_sharded(dataclasses.replace(cfg, resume=True, seed=7))
@@ -1057,7 +1145,7 @@ def video_phase(launches, reset_counts) -> tuple:
         say(f"[video resume] changed seed with resume: wiped, "
             f"{stats['frames']} frames, ray_march_slim launches "
             f"{launched['ray_march_slim']}")
-        expect_video_launches(launched, "ray_march_slim", 8, plain_calls,
+        expect_video_launches(launched, "ray_march_slim", 8, 2, plain_calls,
                               "resume with a changed seed")
         check(stats["frames"] == 8 and read_bytes(paths)[0] != whole[0],
               "a changed seed did not render the video anew")
@@ -1075,7 +1163,7 @@ def video_phase(launches, reset_counts) -> tuple:
             f"{np.abs(a - b).max()}; ray_march_slim launches "
             f"{launched['ray_march_slim']}")
         check(np.abs(a - b).max() <= 1, "engines differ by more than one uint8 step")
-        expect_video_launches(launched, "ray_march_slim", 8, plain_calls,
+        expect_video_launches(launched, "ray_march_slim", 8, 8, plain_calls,
                               "sequential video")
 
         # 7e. the golden orbit with the V2 disk, structure on
@@ -1083,7 +1171,7 @@ def video_phase(launches, reset_counts) -> tuple:
         cfg = video_cfg("v2_golden", frames_per_dispatch=4, **v2)
         reset()
         stats = render_video_sharded(cfg)
-        expect_video_launches(dict(launches), "ray_march_slim", 8, plain_calls,
+        expect_video_launches(dict(launches), "ray_march_slim", 8, 0, plain_calls,
                               "V2 golden video")
         check("texture" not in stats["stage_ms"], f"V2 video stages {stats}")
         paths, progress_file = frame_files(cfg)
@@ -1097,7 +1185,7 @@ def video_phase(launches, reset_counts) -> tuple:
         seq_cfg = video_cfg("v2_sequential", **v2)
         reset()
         render_video(seq_cfg)
-        expect_video_launches(dict(launches), "ray_march_slim", 8, plain_calls,
+        expect_video_launches(dict(launches), "ray_march_slim", 8, 0, plain_calls,
                               "sequential V2 video")
         steps = [np.abs(load_png_rgb8(p).astype(np.int32) - f)
                  for p, f in zip(frame_files(seq_cfg)[0], frames)]
@@ -1123,7 +1211,7 @@ def video_phase(launches, reset_counts) -> tuple:
             f"{sum(a == b for a, b in zip(whole, resumed))} of 8 PNGs byte-equal "
             f"to the uninterrupted run's")
         check(stats["frames"] == 4, f"V2 resume rendered {stats['frames']} frames")
-        expect_video_launches(launched, "ray_march_slim", 4, plain_calls,
+        expect_video_launches(launched, "ray_march_slim", 4, 0, plain_calls,
                               "V2 resume")
         check(resumed == whole, "resumed V2 PNGs differ from the uninterrupted run's")
         reset()
@@ -1133,7 +1221,7 @@ def video_phase(launches, reset_counts) -> tuple:
         say(f"[video v2 resume] changed v2_samples with resume: wiped, "
             f"{stats['frames']} frames, ray_march_slim launches "
             f"{launched['ray_march_slim']}")
-        expect_video_launches(launched, "ray_march_slim", 8, plain_calls,
+        expect_video_launches(launched, "ray_march_slim", 8, 0, plain_calls,
                               "V2 resume with a changed v2_samples")
         check(stats["frames"] == 8 and read_bytes(paths)[0] != whole[0],
               "a changed v2_samples did not render the video anew")
@@ -1145,7 +1233,9 @@ def video_phase(launches, reset_counts) -> tuple:
             out = os.path.join("output", "torch_video", f"fhd_{tag}.mp4")
             argv = ["--video", "--orbit", "-r", "fhd", "--n_frames", str(n_frames),
                     "--fps", "24", *flags, "-o", out]
-            stats, launched = cli_video(argv, reset, launches)
+            stats, launched, n_batches = cli_video(argv, reset, launches)
+            # One background pass a card a batch; none for V2.
+            background = 0 if tag == "v2" else n_batches * n_cards
             # (With several cards a short video may be one batch: no
             # steady rate then.)
             steady = ("n/a (one batch)" if stats["steady_fps"] is None
@@ -1157,13 +1247,16 @@ def video_phase(launches, reset_counts) -> tuple:
                 + ", ".join(f"{k} {v:.3f}" for k, v in stats["stage_ms"].items()
                             if v is not None)
                 + f"; main thread waited on the writers {stats['writer_wait_s']:.3f} s; "
-                f"{expected} launches {launched[expected]}, plain trace calls "
+                f"{expected} launches {launched[expected]}, {BACKGROUND} "
+                f"{launched[BACKGROUND]} ({n_batches} batches), plain trace calls "
                 f"{plain_calls[0]}")
             names = {"native": "native", "ffmpeg": "ffmpeg", "mjpeg": "mjpeg",
                      "none": "none: frames kept"}
             say(f"[video fhd {tag}] assembler: {names[stats['assembler']]}")
             expect_video_launches(launched, expected, n_frames + stats["padded"],
-                                  plain_calls, f"FHD video {tag}")
+                                  background, plain_calls, f"FHD video {tag}")
+            check(n_batches > 0 and (n_frames + stats["padded"]) % n_batches == 0,
+                  f"FHD video {tag}: {n_batches} batches")
             check(stats["frames"] == n_frames, f"FHD video {tag}: {stats}")
             fhd_stats[tag] = stats
             cfg = cli.config_from_args(cli.build_parser().parse_args(argv))
@@ -1179,8 +1272,8 @@ def video_phase(launches, reset_counts) -> tuple:
                 say(f"[video fhd {tag}] probe_video: {probe}, "
                     f"{os.path.getsize(out)} bytes")
                 check(probe == (n_frames, 1920, 1080), f"probe {probe}")
-            path_launches[expected] = (path_launches.get(expected, 0)
-                                       + launched[expected])
+            for name in (expected, BACKGROUND):
+                path_launches[name] = path_launches.get(name, 0) + launched[name]
             if tag == "v2":
                 check("texture" not in stats["stage_ms"]
                       and "background" not in stats["stage_ms"],
@@ -1201,7 +1294,7 @@ def video_phase(launches, reset_counts) -> tuple:
                     f"{seq['frames'] / seq['wall_s']:.3f} frames/s end to end "
                     f"(batched: {stats['frames'] / stats['wall_s']:.3f}); ray_march_slim launches "
                     f"{launches['ray_march_slim']}")
-                expect_video_launches(dict(launches), expected, n_frames,
+                expect_video_launches(dict(launches), expected, n_frames, n_frames,
                                       plain_calls, f"sequential FHD video {tag}")
                 if n_cards > 1:
                     # The same video on one card of the several.
@@ -1219,7 +1312,8 @@ def video_phase(launches, reset_counts) -> tuple:
 
 
 def interactive_phase(launches, reset_counts, smi) -> dict:
-    """Phase 8; -> {kernel: launches of the full-width sessions}."""
+    """Phase 8; -> {kernel: launches of the full-width sessions}. A
+    lifecycle step makes one background pass, a V2 step none."""
     import bhr_tpu_torch.cli as cli
     import bhr_tpu_torch.interactive as interactive
     from bhr_tpu_torch.interactive import InteractiveSession
@@ -1230,7 +1324,7 @@ def interactive_phase(launches, reset_counts, smi) -> dict:
             ["--interactive", "-r", "fhd", *flags]))
 
     cfg = parse([])
-    path = {"ray_march_slim": 0, "ray_march_aa": 0}
+    path = {"ray_march_slim": 0, "ray_march_aa": 0, BACKGROUND: 0}
     counting = contextlib.ExitStack()
     plain_calls = counting.enter_context(counted_plain_traces())
 
@@ -1238,16 +1332,18 @@ def interactive_phase(launches, reset_counts, smi) -> dict:
         reset_counts()
         plain_calls[0] = 0
 
-    def expect(what, slim, aa):
+    def expect(what, slim, aa, background):
         launched = dict(launches)
-        others = {k: v for k, v in launched.items()
-                  if k not in ("ray_march_slim", "ray_march_aa") and v}
+        others = {k: v for k, v in launched.items() if k not in path and v}
         check(launched["ray_march_slim"] == slim and launched["ray_march_aa"] == aa
+              and launched[BACKGROUND] == background
               and not others and not plain_calls[0],
               f"{what} launched {launched} and ran the plain trace "
-              f"{plain_calls[0]} times, expected slim {slim}, aa {aa}")
+              f"{plain_calls[0]} times, expected slim {slim}, aa {aa}, "
+              f"{BACKGROUND} {background}")
         path["ray_march_slim"] += slim
         path["ray_march_aa"] += aa
+        path[BACKGROUND] += background
 
     def lit(frame, what):
         check(isinstance(frame, np.ndarray) and frame.shape == (1080, 1920, 3)
@@ -1280,10 +1376,12 @@ def interactive_phase(launches, reset_counts, smi) -> dict:
                           f"the first frame shown after key {key} was rendered "
                           f"before it")
                 steps[sess.diff] += 1
-        expect("the interactive key script", steps[False], steps[True])
+        expect("the interactive key script", steps[False], steps[True],
+               sess.frames)
         say(f"[interactive keys] {sess.frames} steps, keys d b l 6 0 + up: "
             f"ray_march_slim launches {steps[False]} (d off), ray_march_aa "
-            f"{steps[True]} (d on), plain trace calls {plain_calls[0]}; every "
+            f"{steps[True]} (d on), {BACKGROUND} {sess.frames}, plain trace "
+            f"calls {plain_calls[0]}; every "
             f"first frame after a key was rendered after it; "
             f"{len(sess._fused._renderers)} renderer closures kept; HUD: "
             + sess.hud_text().replace("\n", " | "))
@@ -1325,7 +1423,7 @@ def interactive_phase(launches, reset_counts, smi) -> dict:
                             if round_ and i:
                                 ms[lookahead].append(s_.last_render_ms)
                             n += 1
-            expect(f"fused and staged sessions (key {key})", n, 0)
+            expect(f"fused and staged sessions (key {key})", n, 0, n)
             del sessions, frames
         say(f"[interactive fhd] {smi}: median render ms a frame, fused session: "
             f"{statistics.median(ms[True]):.3f} with lookahead, "
@@ -1347,7 +1445,7 @@ def interactive_phase(launches, reset_counts, smi) -> dict:
             for i in range(3):
                 lit(sess.step(0.05), f"V2 interactive step {i} after d")
             check("D:n/a" in sess.hud_text(), f"V2 HUD: {sess.hud_text()}")
-            expect("the V2 interactive session", 11, 0)
+            expect("the V2 interactive session", 11, 0, 0)
             v2_ms[lookahead] = statistics.median(ms[2:])
         say(f"[interactive v2] {smi}: 2 x 11 steps, ray_march_slim only, d inert "
             f"(HUD says D:n/a); median render ms a frame {v2_ms[True]:.3f} with "
@@ -1411,7 +1509,7 @@ def interactive_phase(launches, reset_counts, smi) -> dict:
         check(8 <= len(submitted) < 64, f"{len(submitted)} frames: q did not end it")
         for frame in submitted:
             lit(frame, "a frame submitted to the preview server")
-        expect("the HTTP preview session", len(submitted), 0)
+        expect("the HTTP preview session", len(submitted), 0, len(submitted))
         return path
     finally:
         counting.close()
@@ -1419,8 +1517,9 @@ def interactive_phase(launches, reset_counts, smi) -> dict:
 
 # One process of a fleet: ``worker.py MODE PID N_PROC PORT OUTDIR``. It
 # joins the group (the CLI modes let ``cli.main`` do that), counts its
-# kernel launches, plain trace calls and progress.json writes, and prints
-# them on "FLEET ..." lines.
+# kernel launches (the background-noise kernel's under "background"),
+# plain trace calls, batches and progress.json writes, and prints them on
+# "FLEET ..." lines.
 FLEET_WORKER = r"""
 import dataclasses, datetime, json, os, sys
 mode, pid, n_proc, port, outdir = (sys.argv[1], int(sys.argv[2]), int(sys.argv[3]),
@@ -1428,22 +1527,30 @@ mode, pid, n_proc, port, outdir = (sys.argv[1], int(sys.argv[2]), int(sys.argv[3
 import torch
 import bhr_tpu_torch.parallel.video as V
 from bhr_tpu_torch.ops import geodesic_cuda
+from bhr_tpu_torch.ops.background import generate_background_components as bg
 from bhr_tpu_torch.ops.geodesic_cuda import trace_geodesics_cuda
 launches = trace_geodesics_cuda.launches
-counts = {"plain": 0, "progress_writes": 0}
+counts = {"plain": 0, "progress_writes": 0, "batches": 0}
 real_trace, real_write = geodesic_cuda.trace_geodesics, V.write_json_atomic
+real_frames = V.render_video_frames_sharded
 def counted_trace(*a, **kw):
     counts["plain"] += 1
     return real_trace(*a, **kw)
 def counted_write(*a, **kw):
     counts["progress_writes"] += 1
     return real_write(*a, **kw)
+def counted_frames(*a, **kw):
+    counts["batches"] += 1
+    return real_frames(*a, **kw)
 geodesic_cuda.trace_geodesics, V.write_json_atomic = counted_trace, counted_write
+V.render_video_frames_sharded = counted_frames
 def report(tag, stats):
     print("FLEET " + json.dumps({"tag": tag, "pid": pid, "launches": dict(launches),
-                                 **counts, "stats": stats}), flush=True)
+                                 "background": bg.launches, **counts,
+                                 "stats": stats}), flush=True)
     launches.update(dict.fromkeys(launches, 0))
-    counts.update(plain=0, progress_writes=0)
+    bg.launches = 0
+    counts.update(plain=0, progress_writes=0, batches=0)
 address = "127.0.0.1:" + port
 if mode.startswith("cli:"):
     import bhr_tpu_torch.cli as cli
@@ -1590,7 +1697,9 @@ def fleet_phase(fhd_video_stats, smi) -> dict:
             f"written {[s['own_frames'] for s in stats]}, padding "
             f"{stats[0]['padded']}), plain trace calls {[r['plain'] for r in run]}; "
             f"progress.json written {[r['progress_writes'] for r in run]} times; "
-            f"assembler {[s['assembler'] for s in stats]}; resume pass: launches "
+            f"assembler {[s['assembler'] for s in stats]}; {BACKGROUND} "
+            f"launches {[r['background'] for r in run]} in "
+            f"{[r['batches'] for r in run]} batches; resume pass: launches "
             f"{[r['launches']['ray_march_slim'] for r in again]}, frames "
             f"{[r['stats']['frames'] for r in again]}")
         check(ours == theirs, f"fleet {name}: PNGs differ from one process's")
@@ -1602,6 +1711,13 @@ def fleet_phase(fhd_video_stats, smi) -> dict:
             others = {k: v for k, v in r["launches"].items()
                       if k != "ray_march_slim" and v}
             check(not others and not r["plain"], f"fleet {name}: {r}")
+            # Each process's card: one background pass a lifecycle batch.
+            check(r["background"] == (r["batches"] if name == "golden" else 0),
+                  f"fleet {name}: {BACKGROUND} {r['background']} in "
+                  f"{r['batches']} batches")
+        check([r["batches"] for r in run] == [(8 + stats[0]["padded"]) // 6] * 2
+              and not any(r["batches"] for r in again),
+              f"fleet {name}: batches {[r['batches'] for r in run + again]}")
         check([r["progress_writes"] for r in run] == [2, 0],
               f"fleet {name}: progress.json writers")
         check(stats[0]["assembler"] in ("native", "ffmpeg", "mjpeg")
@@ -1660,6 +1776,9 @@ def fleet_phase(fhd_video_stats, smi) -> dict:
             others = {k: v for k, v in r["launches"].items()
                       if k != "ray_march_slim" and v}
             check(not others, f"fleet fhd {tag}: {r['launches']}")
+            check(r["background"] == r["batches"] > 0,
+                  f"fleet fhd {tag}: {BACKGROUND} {r['background']} in "
+                  f"{r['batches']} batches")
         steady = ("n/a (one batch)" if stats["steady_fps"] is None
                   else f"{stats['steady_fps']:.3f}")
         say(f"[fleet fhd {tag}] {smi}: {' '.join(argv[:-2])} in {n_proc} processes: "
@@ -1668,7 +1787,9 @@ def fleet_phase(fhd_video_stats, smi) -> dict:
             f"0's per-frame medians ms: "
             + ", ".join(f"{k} {v:.3f}" for k, v in stats["stage_ms"].items()
                         if v is not None)
-            + f"; ray_march_slim launches {slim}, plain trace calls "
+            + f"; ray_march_slim launches {slim}, {BACKGROUND} "
+            f"{[r['background'] for r in reports]} in "
+            f"{[r['batches'] for r in reports]} batches, plain trace calls "
             f"{[r['plain'] for r in reports]}; assembler {stats['assembler']}")
         # Phase 7d's one-process frames of the same video.
         theirs, _ = png_bytes(os.path.join("output", "torch_video",
@@ -1676,11 +1797,11 @@ def fleet_phase(fhd_video_stats, smi) -> dict:
         say(f"[fleet fhd {tag}] {sum(a == b for a, b in zip(frames, theirs))} of "
             f"24 PNGs byte-equal to the one-process run's of phase 7d")
         check(frames == theirs, f"fleet fhd {tag}: PNGs differ from one process's")
-        return stats, sum(slim)
+        return stats, sum(slim), sum(r["background"] for r in reports)
 
     one = fhd_video_stats["default"]
     n_cards = torch.cuda.device_count()
-    _, n_launched = fhd_fleet("2 on cuda:0", 2, None)
+    _, n_launched, n_background = fhd_fleet("2 on cuda:0", 2, None)
 
     def rates(stats):
         steady = ("n/a (one batch)" if stats["steady_fps"] is None
@@ -1690,15 +1811,17 @@ def fleet_phase(fhd_video_stats, smi) -> dict:
     one_card = fhd_video_stats.get("default on 1 card", one)
     say(f"[fleet fhd] one process on one card in this call (phase 7d): "
         f"{rates(one_card)}")
-    path = {"ray_march_slim": n_launched}
+    path = {"ray_march_slim": n_launched, BACKGROUND: n_background}
     if n_cards > 1:
         # Optimisation B's measurement: a process per card beside one
         # process (one host thread) over all cards.
         visible = (os.environ.get("CUDA_VISIBLE_DEVICES")
                    or ",".join(map(str, range(n_cards)))).split(",")
-        per_card, n = fhd_fleet(f"{n_cards} processes, a card each", n_cards,
-                                [{"CUDA_VISIBLE_DEVICES": k} for k in visible])
+        per_card, n, n_background = fhd_fleet(
+            f"{n_cards} processes, a card each", n_cards,
+            [{"CUDA_VISIBLE_DEVICES": k} for k in visible])
         path["ray_march_slim"] += n
+        path[BACKGROUND] += n_background
         say(f"[fleet fhd] a process per card: {rates(per_card)}; one process "
             f"over all {n_cards} cards (phase 7d): {rates(one)}; one process on "
             f"one card: {rates(one_card)}")
@@ -1956,7 +2079,7 @@ def png_phase(launches, reset_counts, smi) -> dict:
 
     # The same videos with each encoder, in turns; the zlib runs patch
     # native.png_available, so save_image takes its standard-library path.
-    path_launches = {"ray_march_slim": 0}
+    path_launches = {"ray_march_slim": 0, BACKGROUND: 0}
     real = native.png_available
     for tag, flags, order in (("fhd v2", V2_FLAGS["v2"], ("native", "zlib")),
                               ("fhd", [], ("zlib", "native"))):
@@ -1968,14 +2091,21 @@ def png_phase(launches, reset_counts, smi) -> dict:
                     "24", *flags, "-o", out]
             native.png_available = real if encoder == "native" else (lambda: False)
             try:
-                stats[encoder], launched = cli_video(argv, reset_counts, launches)
+                stats[encoder], launched, n_batches = cli_video(argv, reset_counts,
+                                                                launches)
             finally:
                 native.png_available = real
-            others = {k: v for k, v in launched.items() if k != "ray_march_slim" and v}
+            # One background pass a card a lifecycle batch, none for V2.
+            background = 0 if flags else n_batches * torch.cuda.device_count()
+            others = {k: v for k, v in launched.items()
+                      if k not in ("ray_march_slim", BACKGROUND) and v}
             check(launched["ray_march_slim"] == 24 + stats[encoder]["padded"]
+                  and launched[BACKGROUND] == background and n_batches > 0
                   and not others and stats[encoder]["frames"] == 24,
-                  f"video {tag} ({encoder}): {launched}, {stats[encoder]}")
-            path_launches["ray_march_slim"] += launched["ray_march_slim"]
+                  f"video {tag} ({encoder}): {launched} in {n_batches} batches, "
+                  f"{stats[encoder]}")
+            for name in path_launches:
+                path_launches[name] += launched[name]
             temp_dir, _ = video_temp_paths(out)
             last[encoder] = tio.load_png_rgb8(os.path.join(temp_dir, "frame_0023.png"))
         check(np.array_equal(last["native"], last["zlib"]),
@@ -2063,15 +2193,20 @@ def tools_phase(launches, reset_counts, smi) -> dict:
         ("check_texture", check_texture, ["--out", f"{out}/texture"],
          [f"{out}/texture_{p}.png" for p in ("polar", "topview", "density")], {}),
         ("check_texture --dynamic", check_texture, ["--dynamic", "--out", f"{out}/dyn"],
-         [f"{out}/dyn_{p}.png" for p in ("polar", "topview", "density")], {}),
+         [f"{out}/dyn_{p}.png" for p in ("polar", "topview", "density")],
+         {BACKGROUND: 1}),
         ("preview_v2 --structure", preview_v2, ["--structure", "--out", f"{out}/v2"],
          [f"{out}/v2_{p}.png" for p in ("top", "density", "temperature")], {}),
         ("compare_aa", compare_aa, ["--out", f"{out}/aa_compare.png"],
-         [f"{out}/aa_compare.png"], {"ray_march_slim": 1, "ray_march_aa": 1}),
+         [f"{out}/aa_compare.png"],
+         {"ray_march_slim": 1, "ray_march_aa": 1, BACKGROUND: 2}),
         ("rotation_experiments --verify", rotation_experiments,
          ["--verify", "--out", f"{out}/rotation"],
-         [f"{out}/rotation/{p}.png" for p in rotation_pngs], {}),
-        ("profile_pipeline", profile_pipeline, [], [], {"ray_march_slim": 14}),
+         [f"{out}/rotation/{p}.png" for p in rotation_pngs], {BACKGROUND: 4}),
+        # A texture stage (one background pass) per trace: 1 + 9 timed by
+        # device_time + 4 by the stage timer.
+        ("profile_pipeline", profile_pipeline, [], [],
+         {"ray_march_slim": 14, BACKGROUND: 14}),
     )
     path_launches = {}
     for tag, tool, args, pngs, expected in runs:
@@ -2137,12 +2272,13 @@ def bench_phase(launches, reset_counts, smi, sass, n_sms, clock_mhz) -> dict:
         numbers(tag, {k: v for k, v in tr.items() if k != "launches"})
         for k in ("fp32_bound_share", "issue_bound_share"):
             check(0.0 < tr[k] <= 1.05, f"bench {tag}: {k} {tr[k]}")
+    # One background pass a batch of 4 frames on the one card.
     sd = measured("sd frame", lambda: bench.time_resolution("sd", 4),
-                  lambda r: {"ray_march_slim": r["frames"]})
+                  lambda r: {"ray_march_slim": r["frames"], BACKGROUND: r["frames"] // 4})
     say(f"[bench sd frame] {smi}: bench scene 640x360, batch 4: median "
         f"{sd['frame_ms']:.3f} ms a frame over 5 batches (spread "
         f"{sd['spread'][0]:.3f}-{sd['spread'][1]:.3f}); {sd['frames']} frames, "
-        f"ray_march_slim launches {sd['frames']}")
+        f"ray_march_slim launches {sd['frames']}, {BACKGROUND} {sd['frames'] // 4}")
     numbers("sd frame", {"frame_ms": sd["frame_ms"], "min": sd["spread"][0],
                          "max": sd["spread"][1]})
     ns = measured("gather", bench.time_gather, lambda r: {})
@@ -2225,7 +2361,7 @@ def nan_trap_phase(launches, reset_counts, smi) -> dict:
     # 13a. one warm-up run with the trap off, then TRAP_TURNS turns of
     # (off, on, on, off): every output bit-equal, no trap fired; the
     # launches counted from 0 around each run.
-    def off_and_on(tag, kernel, frames, make, run, equal):
+    def off_and_on(tag, kernel, frames, background, make, run, equal):
         outs, ms, n_checks = [], {False: [], True: []}, {False: [], True: []}
         for i, on in enumerate((False, *(False, True, True, False) * TRAP_TURNS)):
             with nans.debug_nans(on):
@@ -2240,9 +2376,10 @@ def nan_trap_phase(launches, reset_counts, smi) -> dict:
                     ms[on].append((time.perf_counter() - t0) * 1e3)
                     n_checks[on].append(len(checks))
                 launched = {k: v for k, v in launches.items() if v}
-            check(launched == {kernel: frames},
-                  f"[nans {tag}] launched {launched}, expected {kernel} {frames}")
-            path_launches[kernel] = path_launches.get(kernel, 0) + frames
+            want = {k: v for k, v in ((kernel, frames), (BACKGROUND, background)) if v}
+            check(launched == want, f"[nans {tag}] launched {launched}, expected {want}")
+            for k, v in want.items():
+                path_launches[k] = path_launches.get(k, 0) + v
             del state
         same = all(equal(outs[0], o) for o in outs[1:])
         med = {on: statistics.median(v) for on, v in ms.items()}
@@ -2252,7 +2389,8 @@ def nan_trap_phase(launches, reset_counts, smi) -> dict:
             f"[{min(ms[True]):.3f}-{max(ms[True]):.3f}], on - off "
             f"{med[True] - med[False]:+.3f} ms; {n_checks[True][0] / frames:.2f} "
             f"checks a frame on, {max(n_checks[False])} off; all {len(outs)} "
-            f"outputs bit-equal {same}; {kernel} launches {frames} a run")
+            f"outputs bit-equal {same}; {kernel} launches {frames} a run, "
+            f"{BACKGROUND} {background}")
         check(same, f"[nans {tag}] trap on and off differ")
         check(max(n_checks[False]) == 0 and min(n_checks[True]) > 0,
               f"[nans {tag}] checks {n_checks}")
@@ -2271,12 +2409,13 @@ def nan_trap_phase(launches, reset_counts, smi) -> dict:
                     dynamic.advance(t=0.0, dt=0.0, recompute_stats=True))
             return renderer.render(renderer.config.pov, renderer.config.fov)
 
-        for tag, flags, kernel in (("fhd default", [], "ray_march_slim"),
-                                   ("fhd aa_flare", AA_FLAGS, "ray_march_aa"),
-                                   ("fhd v2", V2_FLAGS["v2"], "ray_march_slim")):
+        for tag, flags, kernel, background in (
+                ("fhd default", [], "ray_march_slim", 1),
+                ("fhd aa_flare", AA_FLAGS, "ray_march_aa", 1),
+                ("fhd v2", V2_FLAGS["v2"], "ray_march_slim", 0)):
             cfg = parse(flags)
-            off_and_on(tag, kernel, 1, lambda cfg=cfg: _make_renderer(cfg),
-                       still, images_equal)
+            off_and_on(tag, kernel, 1, background,
+                       lambda cfg=cfg: _make_renderer(cfg), still, images_equal)
 
         # One batch of 4 frames of the FHD orbit video, on a one-card grid.
         vcfg = parse(["--video", "--orbit", "--n_frames", "24", "--fps", "24"])
@@ -2299,11 +2438,11 @@ def nan_trap_phase(launches, reset_counts, smi) -> dict:
                                                  *packs, defer_fetch=True)
             return out.cpu().numpy()
 
-        off_and_on("fhd video batch of 4", "ray_march_slim", 4, video_state,
+        off_and_on("fhd video batch of 4", "ray_march_slim", 4, 1, video_state,
                    video_batch, images_equal)
 
         icfg = parse(["--interactive"])
-        off_and_on("fhd session step", "ray_march_slim", 1,
+        off_and_on("fhd session step", "ray_march_slim", 1, 1,
                    lambda: InteractiveSession(icfg, lookahead=False),
                    lambda sess: sess.step(0.05), images_equal)
     finally:
@@ -2438,6 +2577,146 @@ def nan_trap_phase(launches, reset_counts, smi) -> dict:
     return path_launches
 
 
+BG_SCALARS = (3.0, 2.7, 2.0, 15.0)  # az_freq, az_shear, r_inner, r_outer
+BG_BATCH = np.asarray([f * 0.1 for f in (20, 21, 22, 23)], np.float32)
+# The plain version's element-wise operations with a float32 result that
+# do arithmetic: each takes an FP32 lane for at least a clock in the
+# kernel, which fuses none of them into an FMA (it keeps their rounding).
+BG_FP32_OPS = {"add", "sub", "rsub", "mul", "div", "floor", "clamp", "sqrt",
+               "reciprocal", "sin", "cos", "pow"}
+# Its int32 arithmetic (the lattice hash, the gradient pick, the corner
+# offsets). The kernel fuses some of it (a multiply and an add in one
+# IMAD, an xor and an and in one LOP3), so the count is no lower bound.
+BG_INT_OPS = {"add", "sub", "mul", "bitwise_and", "bitwise_xor", "__rshift__",
+              "bitwise_right_shift"}
+INT32_LANES_PER_SM = 64  # H100: half the FP32 lanes
+
+
+def plain_background_ops(*args, **kw):
+    """(aten calls of one plain background pass on the card, the FP32
+    operations in it: the elements each ``BG_FP32_OPS`` call writes,
+    summed; the int32 operations, the same for ``BG_INT_OPS``)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    from bhr_tpu_torch.ops.background import generate_background_components_plain
+
+    class Count(TorchDispatchMode):
+        calls = fp32 = int32 = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            Count.calls += 1
+            name = func.overloadpacket.__name__
+            for o in tree_leaves(out):
+                if isinstance(o, torch.Tensor):
+                    if name in BG_FP32_OPS and o.dtype == torch.float32:
+                        Count.fp32 += o.numel()
+                    elif name in BG_INT_OPS and o.dtype == torch.int32:
+                        Count.int32 += o.numel()
+            return out
+
+    with Count():
+        generate_background_components_plain(*args, **kw)
+    torch.cuda.synchronize()
+    return Count.calls, Count.fp32, Count.int32
+
+
+def background_phase(smi, n_sms, clock_mhz) -> dict:
+    """Phase 2b: the background-noise kernel (``csrc/background_noise.cu``)
+    against its plain version on the card, at the FHD (2912x416, s = 2)
+    and 4K (5824x832, s = 4) textures of the default scene, for one frame
+    at t = 0 and 7.3 and for a video batch's four frames in one pass:
+    the unequal values of each plane (0 expected), the max |diff| (1e-5 at
+    most, ``test_torch_texture.py``'s field bound), one launch a pass,
+    the kernel's ms (CUDA events over 20 passes through the wrapper)
+    beside its bound (the plain version's FP32 operations, one a lane and
+    a clock, over the SMs at the maximum clock; the output's bytes at
+    3.35 TB/s), the plain pass's ms (host clock, synchronized) and its
+    aten calls. Returns the kernel's numbers for phase 14's JSON row."""
+    from bhr_tpu_torch import _build
+    from bhr_tpu_torch.config import compute_disk_texture_resolution
+    from bhr_tpu_torch.models.dynamic_disk import adaptive_generation_scale
+    from bhr_tpu_torch.ops.background import (
+        generate_background_components as bg,
+        generate_background_components_plain as plain,
+    )
+
+    t0 = time.perf_counter()
+    built = _build.build("background_noise")
+    say(f"[build] background_noise: {time.perf_counter() - t0:.2f} s "
+        f"(nvcc {built.seconds:.2f} s) -> {os.path.relpath(built.path, ROOT)}")
+    for line in built.log.splitlines():
+        if "registers" in line or "spill" in line:
+            say(f"[build] ptxas background_noise: {line.strip()}")
+            spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            check(not spills or spills.groups() == ("0", "0"), f"ptxas spills: {line}")
+    lane_rate = n_sms * ISSUE_LANES_PER_SM * clock_mhz * 1e6
+    row = dict(max_abs_err=0.0)
+    for tag, (w, h) in (("fhd", (1920, 1080)), ("4k", (3840, 2160))):
+        n_phi, n_r = compute_disk_texture_resolution(w, h, POV, 90.0, 2.0, 15.0)
+        s = adaptive_generation_scale(n_r, n_phi)
+        for t in (0.0, 7.3, BG_BATCH):
+            frames = np.size(t)
+            what = (f"[background {tag} {n_phi}x{n_r} s={s}] F={frames} "
+                    f"t={np.round(np.atleast_1d(t), 2).tolist()}")
+            before = bg.launches
+            got = bg(n_r, n_phi, *BG_SCALARS, t, generation_scale=s, device="cuda")
+            launched = bg.launches - before
+            want = plain(n_r, n_phi, *BG_SCALARS, t, s, "cuda")
+            torch.cuda.synchronize()
+            check(got.shape == want.shape, f"{what} shape {tuple(got.shape)} "
+                  f"!= {tuple(want.shape)}")
+            unequal = [int((got[..., q, :, :] != want[..., q, :, :]).sum())
+                       for q in range(got.shape[-3])]
+            err = float((got - want).abs().max())
+            say(f"{what}: unequal values by plane {unequal} of "
+                f"{got[..., 0, :, :].numel()} each; max |diff| {err:.3e}; "
+                f"kernel launches {launched}")
+            check(launched == 1, f"{what}: {launched} launches")
+            check(err <= 1e-5, f"{what}: max |diff| {err} above 1e-5")
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            del got, want
+            if frames == 1 and t != 0.0:
+                continue  # timed at t = 0 and over the batch
+            reps = 20
+            bg(n_r, n_phi, *BG_SCALARS, t, generation_scale=s, device="cuda")
+            _, ms = cuda_ms(lambda: bg(n_r, n_phi, *BG_SCALARS, t,
+                                       generation_scale=s, device="cuda"), reps)
+            t1 = time.perf_counter()
+            for _ in range(reps):
+                bg(n_r, n_phi, *BG_SCALARS, t, generation_scale=s, device="cuda")
+            host_us = (time.perf_counter() - t1) / reps * 1e6
+            torch.cuda.synchronize()
+            plain_ms = []
+            for _ in range(3):
+                t1 = time.perf_counter()
+                plain(n_r, n_phi, *BG_SCALARS, t, s, "cuda")
+                torch.cuda.synchronize()
+                plain_ms.append((time.perf_counter() - t1) * 1e3)
+            calls, fp32, int32 = plain_background_ops(n_r, n_phi, *BG_SCALARS, t, s,
+                                                      "cuda")
+            ops_ms = fp32 / lane_rate * 1e3
+            int_ms = int32 / (n_sms * INT32_LANES_PER_SM * clock_mhz * 1e6) * 1e3
+            points = frames * (n_r // s) * (n_phi // s)
+            bytes_ms = frames * 7 * n_r * n_phi * 4 / 3.35e12 * 1e3
+            bound_ms, bound_by = max((ops_ms, "operations"), (bytes_ms, "bytes"))
+            say(f"{what} {smi}: kernel {ms:.4f} ms a pass ({ms / frames:.4f} a "
+                f"frame; host {host_us:.1f} us a call); bound {bound_ms:.4f} ms "
+                f"by {bound_by} ({fp32 / points:.1f} "
+                f"FP32 operations a point, {fp32:.4e} a pass, at {lane_rate:.4e}/s; "
+                f"output {bytes_ms:.4f} ms at 3.35 TB/s), the kernel at "
+                f"{bound_ms / ms:.1%} of it; beside it, not a bound: the plain "
+                f"version's int32 operations, {int32 / points:.1f} a point, "
+                f"{int_ms:.4f} ms at {INT32_LANES_PER_SM} INT32 lanes an SM "
+                f"({int_ms / ms:.1%} of the kernel's time); plain pass "
+                f"{min(plain_ms):.1f}-{max(plain_ms):.1f} ms, {calls} aten calls")
+            if tag == "fhd" and frames == 1:
+                row.update(ms=ms, plain_ms=min(plain_ms), bound_ms=bound_ms,
+                           bound_by=bound_by)
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -2449,13 +2728,11 @@ def main() -> int:
     from bhr_tpu_torch.config import SceneConfig, escape_radius
     from bhr_tpu_torch.models.skybox import load_or_generate_skybox
     from bhr_tpu_torch.modes import render_image
-    from bhr_tpu_torch.ops.geodesic_cuda import KERNELS, kernel_name, trace_geodesics_cuda
+    from bhr_tpu_torch.ops.geodesic_cuda import KERNELS, kernel_name
     from bhr_tpu_torch.pipeline import Renderer
 
-    launches = trace_geodesics_cuda.launches  # per instantiation
-
-    def reset_counts():
-        launches.update(dict.fromkeys(launches, 0))
+    launches = KernelLaunches()
+    reset_counts = launches.reset
 
     check(sorted(KERNELS) == sorted(VARIANTS), f"kernels {KERNELS}")
 
@@ -2502,6 +2779,9 @@ def main() -> int:
         f"{n_sms * ISSUE_LANES_PER_SM * clock_mhz * 1e6:.4e} thread-instructions/s, "
         f"MUFU {n_sms * MUFU_LANES_PER_SM * clock_mhz * 1e6:.4e}/s")
 
+    # 2b. the background-noise kernel vs its plain version
+    bg_row = background_phase(smi, n_sms, clock_mhz)
+
     # 3. kernel vs plain at the small shapes
     for tag, args, reps in (
         ("128x32", (128, 32, 60.0, 15.0, 0.2, 12.04, 2.0, 3.5), 20),
@@ -2525,12 +2805,13 @@ def main() -> int:
         h, w = 180, 320
         center = img[h // 2 - 16: h // 2 + 16, w // 2 - 16: w // 2 + 16]
         say(f"[golden {scene}] vs e2e_cpu{suffix}.npz max {diff.max():.3e} "
-            f"mean {diff.mean():.3e}; {expected} launches {launched[expected]}")
+            f"mean {diff.mean():.3e}; {expected} launches {launched[expected]}, "
+            f"{BACKGROUND} {launched[BACKGROUND]}")
         check(img.shape == (180, 320, 3) and np.isfinite(img).all(),
               f"golden {scene} shape/finite")
         check(diff.max() <= 5e-2 and diff.mean() <= 5e-4,
               f"golden {scene} outside bounds")
-        expect_launches(launched, expected, f"golden {scene}")
+        expect_launches(launched, expected, f"golden {scene}", background=1)
         check(img.max() > 0.5 and (img.sum(axis=-1) > 0.02).mean() > 0.05,
               f"golden {scene}: no bright ring")
         if extra.get("lens_flare"):
@@ -2571,9 +2852,9 @@ def main() -> int:
         images[scene] = img
 
     # 5. the main paths at full width
-    path_launches = {}
+    path_launches = {BACKGROUND: 0}
 
-    def cli_frame(tag, flags, expected):
+    def cli_frame(tag, flags, expected, background=0):
         out_png = os.path.join("output", f"torch_fhd_{tag}.png")
         reset_counts()
         t0 = time.perf_counter()
@@ -2581,12 +2862,14 @@ def main() -> int:
         launched = dict(launches)
         say(f"[fhd-cli {tag}] {' '.join(flags) or '(defaults)'}: wrote {out_png} "
             f"({os.path.getsize(out_png)} bytes) in {time.perf_counter() - t0:.2f} s; "
-            f"{expected} launches {launched[expected]}")
-        expect_launches(launched, expected, f"FHD {tag} frame")
+            f"{expected} launches {launched[expected]}, {BACKGROUND} "
+            f"{launched[BACKGROUND]}")
+        expect_launches(launched, expected, f"FHD {tag} frame", background)
         path_launches[expected] = path_launches.get(expected, 0) + launched[expected]
+        path_launches[BACKGROUND] += background
 
-    cli_frame("default", [], "ray_march_slim")
-    cli_frame("aa_flare", AA_FLAGS, "ray_march_aa")
+    cli_frame("default", [], "ray_march_slim", background=1)
+    cli_frame("aa_flare", AA_FLAGS, "ray_march_aa", background=1)
     # This slice's path: the V2 volume disk, plain and with the structure
     # flags and the scientific palette.
     with counted_plain_traces() as plain_calls:
@@ -2741,9 +3024,8 @@ def main() -> int:
     del traces
 
     # 6b, 6c. the tile path
-    aa_bands, v2_bands = tile_phase(launches, reset_counts)
-    path_launches["ray_march_aa"] += aa_bands
-    path_launches["ray_march_slim"] += v2_bands
+    for name, n in tile_phase(launches, reset_counts).items():
+        path_launches[name] += n
 
     # 7. the orbit video
     video_launches, fhd_video_stats = video_phase(launches, reset_counts)
@@ -2778,6 +3060,12 @@ def main() -> int:
         path_launches[name] += n
 
     # 14. results
+    from bhr_tpu_torch.ops.background import generate_background_components
+
+    check(generate_background_components.plain_passes == 0,
+          f"{generate_background_components.plain_passes} background passes "
+          "on the card ran the plain version")
+    check(path_launches[BACKGROUND] > 0, "no main path launched the background kernel")
     say(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
@@ -2792,7 +3080,24 @@ def main() -> int:
         "bound_by": bounds[name][1],
         "issue_bound_ms": issue[name][0],
         "library_ms": None,  # no PyTorch call computes a ray march
-    } for name in KERNELS]}))
+    } for name in KERNELS] + [{
+        "name": "background_noise",
+        "route": "cuda",
+        "source": "bhr_tpu_torch/csrc/background_noise.cu",
+        "replaces": None,  # XLA fused this graph on the TPU
+        "launches": path_launches[BACKGROUND],
+        "max_abs_err": bg_row["max_abs_err"],
+        "ms": bg_row["ms"],
+        "plain_ms": bg_row["plain_ms"],
+        "bound_ms": bg_row["bound_ms"],
+        "bound_by": bg_row["bound_by"],
+        # Not worked out: a point's instructions depend on each field's
+        # octave count, read at run time by a rolled loop, so the SASS
+        # alone gives no count a point (phase 2b prints the plain
+        # version's int32 work beside the FP32 bound instead).
+        "issue_bound_ms": None,
+        "library_ms": None,  # no PyTorch call computes the noise
+    }]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
