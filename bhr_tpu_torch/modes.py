@@ -308,10 +308,9 @@ def render_video(config: SceneConfig,
     none: its frame is a function of the camera and the frame index).
 
     Returns the run's statistics: ``frames`` rendered in this run,
-    ``wall_s``, ``steady_fps`` (None for the sequential engine),
-    ``assembler`` (what finished the video file: "native", "ffmpeg",
-    "mjpeg" or "none") and, from the batched engine, ``stage_ms`` and
-    ``writer_wait_s``.
+    ``wall_s``, ``assembler`` (what finished the video file: "native",
+    "ffmpeg", "mjpeg" or "none") and, from the batched engine,
+    ``stage_ms`` and ``writer_wait_s``.
     """
     config = config.validated()
     if renderer is None and sharded_video_eligible(config):
@@ -372,8 +371,7 @@ def render_video(config: SceneConfig,
             progress_file, {"params": params, "completed": sorted(completed)}
         )
         stats = {"frames": len(completed) - n_before,
-                 "wall_s": time.time() - total_t0, "steady_fps": None,
-                 "assembler": "none"}
+                 "wall_s": time.time() - total_t0, "assembler": "none"}
         if len(completed) < config.n_frames:
             assembler.discard()
             print(f"Only {len(completed)}/{config.n_frames} frames done. "

@@ -487,16 +487,6 @@ def _elapsed_ms(a, b) -> float:
     return (b - a) * 1e3 if isinstance(a, float) else a.elapsed_time(b)
 
 
-def steady_rate(n_rendered: int, batch: int, span_s: float) -> Optional[float]:
-    """Frames/s after the first batch: the ``n_rendered - batch`` frames
-    really rendered in the later batches (the padding repeats of the last
-    batch do not count) over ``span_s``, the time from the first batch's
-    enqueueing to the last PNG on disk. None for a single batch."""
-    if n_rendered <= batch:
-        return None
-    return (n_rendered - batch) / max(span_s, 1e-9)
-
-
 def _median_ms(values) -> Optional[float]:
     return statistics.median(values) if values else None
 
@@ -555,9 +545,7 @@ def render_video_sharded(config: SceneConfig, devices=None) -> dict:
     Returns the run's statistics: ``frames`` rendered in this run (by
     the whole fleet), ``own_frames`` written by this process,
     ``padded`` repeats of the last frame that filled the last batch
-    (rendered, never written), ``wall_s``, ``steady_fps`` (the frames
-    after the first batch over the time from the first batch's
-    enqueueing to the end; None for a single batch), ``assembler``
+    (rendered, never written), ``wall_s``, ``assembler``
     ("native", "ffmpeg", "mjpeg" or "none"; None on the processes of a
     fleet that do not assemble), ``stage_ms`` (per-frame medians:
     background (a batch's pass over its frames) and each of
@@ -769,8 +757,6 @@ def _render_video_job(config: SceneConfig, devices, end_setup) -> dict:
             if inline:
                 self.jobs.append(video_pool.submit(encode_video, f, host, copied))
 
-    batch_enqueued_t = []
-
     def process(done: Batch) -> None:
         """Record a batch once its PNGs are on disk."""
         t0 = time.perf_counter()
@@ -836,7 +822,6 @@ def _render_video_job(config: SceneConfig, devices, end_setup) -> dict:
                         config, mesh, [idx[p] for p in own], skybox, dynamic,
                         all_fil, all_hs, all_rt, renderer_fn, defer_fetch=True,
                         on_frame=current.on_frame, on_stage=current.on_stage)
-                batch_enqueued_t.append(time.time())
                 if inflight is not None:
                     with span("video.record"):
                         process(inflight)
@@ -852,10 +837,7 @@ def _render_video_job(config: SceneConfig, devices, end_setup) -> dict:
                 video_pool.shutdown(wait=True)
             finally:
                 writer.close()
-        end_t = time.time()
-        say(f"All frames rendered in {(end_t - total_t0) / 60:.1f} min")
-        steady_fps = steady_rate(len(pending), batch,
-                                 end_t - batch_enqueued_t[0] if pending else 0.0)
+        say(f"All frames rendered in {(time.time() - total_t0) / 60:.1f} min")
         finished_by = None
         if inline:
             finished_by = _finish_video(assembler, temp_dir, config)
@@ -872,7 +854,6 @@ def _render_video_job(config: SceneConfig, devices, end_setup) -> dict:
         "own_frames": written[0],
         "padded": n_batches * batch - len(pending),
         "wall_s": wall_s,
-        "steady_fps": steady_fps,
         "assembler": finished_by,
         "stage_ms": {name: _median_ms(v) for name, v in stage_ms.items()},
         "writer_wait_s": waited[0],

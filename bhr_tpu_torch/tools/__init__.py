@@ -14,8 +14,8 @@ Each runs as ``python -m bhr_tpu_torch.tools.<name>``, has
   ``--verify`` asserting the conclusions;
 - ``profile_pipeline``: per-stage ms of the FHD dynamic frame;
 
-and the measurement tools of ``bhr_tpu_torch.bench`` (the same flags,
-plus size flags for small runs):
+and the measurement tools built on ``bhr_tpu_torch.bench``'s helpers
+(the same flags, plus size flags for small runs):
 
 - ``bench_trace``: the ray-march kernel's Mray-steps/s and bound shares;
 - ``bench_resolutions``: the bench frame at sd, hd, fhd and 4k;

@@ -3,8 +3,8 @@
 The port of ``tools/bench_resolutions.py``: a loop over
 ``bhr_tpu_torch.bench.time_resolution`` (the batched renderer on one
 device, a warm batch, then the median of timed batches), so that a
-scaling table and the bench's frame metrics cannot drift onto different
-methods. One line a preset.
+scaling table and ``chip_smoke.py``'s bench frame cannot drift onto
+different methods. One line a preset.
 
 Usage:
     python -m bhr_tpu_torch.tools.bench_resolutions [--device cuda]

@@ -1,13 +1,13 @@
 """Ray-march throughput of the bench scene: Mray-steps/s on one card.
 
 The port of ``tools/bench_trace.py``: a thin shell over
-``bhr_tpu_torch.bench.time_trace``, so that this tool and the bench can
-never measure different things. A "ray-step" is one useful RK4 step of
-one ray, counted by the kernel's step-count instantiation. Beside it,
-the kernel's shares of its FP32-operation bound and of its issue bound
-(``bench.bound``, ``bench.issue_bounds``: the op model of
-``csrc/ray_march.cu`` and the SASS of the built library), which take
-the place of ``bhr_tpu``'s VPU utilizations.
+``bhr_tpu_torch.bench.time_trace``, so that this tool and
+``chip_smoke.py`` can never measure different things. A "ray-step" is
+one useful RK4 step of one ray, counted by the kernel's step-count
+instantiation. Beside it, the kernel's shares of its FP32-operation
+bound and of its issue bound (``bench.bound``, ``bench.issue_bounds``:
+the op model of ``csrc/ray_march.cu`` and the SASS of the built
+library), which take the place of ``bhr_tpu``'s VPU utilizations.
 
 Usage:
     python -m bhr_tpu_torch.tools.bench_trace [--aa] [--device cuda]

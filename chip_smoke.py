@@ -111,7 +111,7 @@ exits non-zero without printing a result:
    (24 ``ray_march_slim`` launches), the same with 8 frames and
    ``--anti_alias lod_radius --aa_strength 1.0 --lens_flare`` (8
    ``ray_march_aa``), and the 24 frames with ``--disk_model v2`` (24
-   ``ray_march_slim``; no texture stage): wall seconds, frames/s end to end and steady, the
+   ``ray_march_slim``; no texture stage): wall seconds, frames/s end to end, the
    per-frame stage medians, the main thread's wait on the writers, which
    assembler finished the file (with the native one, ``probe_video`` must
    give the frame count and size), the zlib levels' time and size on one
@@ -153,8 +153,8 @@ exits non-zero without printing a result:
    with exit code 2 and "sharded orbit video"; (c) a failure injected
    into process 1's second batch ends it with exit code 1 and "aborting
    the fleet", and process 0 ends non-zero; (d) the FHD default video, 24
-   frames, through ``cli.main`` in both processes: frames/s end to end and
-   steady beside phase 7d's one-process figures; where several cards are
+   frames, through ``cli.main`` in both processes: frames/s end to end
+   beside phase 7d's one-process figures; where several cards are
    visible, also one process per card (``CUDA_VISIBLE_DEVICES=k``) beside
    one process over all cards;
 10. the static disk of ``--disk_texture auto``, with the texture cache
@@ -187,8 +187,8 @@ exits non-zero without printing a result:
    the frame exactly; (b) the FHD V2 and the FHD default videos (24
    frames each, through ``cli.main``) each rendered twice, in turns, with
    the native encoder and with the zlib path (``native.png_available``
-   patched to False, so ``save_image`` takes it): frames/s end to end and
-   steady, PNG median ms, the main thread's wait on the writers, 24
+   patched to False, so ``save_image`` takes it): frames/s end to end,
+   PNG median ms, the main thread's wait on the writers, 24
    ``ray_march_slim`` launches a video, the last frames equal; (c)
    ``bhr_tpu``'s nine extreme scenes (``EXTREME_SCENES``): each 96x64
    frame through the kernel (one ``ray_march_slim`` or ``ray_march_aa``
@@ -207,11 +207,8 @@ exits non-zero without printing a result:
    AA (the bench scene at FHD: kernel ms, Mray-steps/s, the FP32- and
    issue-bound shares, each in (0, 1.05]), ``time_resolution("sd", 4)``
    (median and spread of 5 batches), ``time_gather`` (no kernel of the
-   port), each value a finite number and the launches what the bench
-   says it made; the regression gate on synthetic artifacts in a temp
-   directory (the newest round below the current one is read, the
-   current round's and a root-style ``BENCH_r*.json`` are not; a slower
-   headline is flagged, and a retry that raises keeps its flag);
+   port), each value a finite number and the launches what each
+   measurement says it made;
 13. the NaN trap of ``--debug_nans`` and the build cache (``[nans ...]``
    lines): (a) with the trap off and on in turns (off, on, on, off), the
    FHD CLI-default still (slim kernel), the FHD AA + flare still (AA
@@ -258,6 +255,7 @@ import collections.abc
 import contextlib
 import io
 import json
+import math
 import os
 import re
 import shutil
@@ -277,7 +275,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 # The op model of the trace, the golden tables and golden_diff live in
-# bhr_tpu_torch.bench (one place for the bench and this script).
+# bhr_tpu_torch.bench (one place for the tools and this script).
 from bhr_tpu_torch.bench import (  # noqa: E402
     GOLDEN,
     GOLDEN_VIDEO,
@@ -1236,14 +1234,10 @@ def video_phase(launches, reset_counts) -> tuple:
             stats, launched, n_batches = cli_video(argv, reset, launches)
             # One background pass a card a batch; none for V2.
             background = 0 if tag == "v2" else n_batches * n_cards
-            # (With several cards a short video may be one batch: no
-            # steady rate then.)
-            steady = ("n/a (one batch)" if stats["steady_fps"] is None
-                      else f"{stats['steady_fps']:.3f}")
             say(f"[video fhd {tag}] {' '.join(argv[:-2])} on {n_cards} card(s): "
                 f"{stats['frames']} frames (+{stats['padded']} padding) in "
-                f"{stats['wall_s']:.2f} s, {stats['frames'] / stats['wall_s']:.3f} frames/s end to end, "
-                f"{steady} steady; per-frame medians ms: "
+                f"{stats['wall_s']:.2f} s, {stats['frames'] / stats['wall_s']:.3f} frames/s end to end; "
+                f"per-frame medians ms: "
                 + ", ".join(f"{k} {v:.3f}" for k, v in stats["stage_ms"].items()
                             if v is not None)
                 + f"; main thread waited on the writers {stats['writer_wait_s']:.3f} s; "
@@ -1303,8 +1297,7 @@ def video_phase(launches, reset_counts) -> tuple:
                         dataclasses.replace(cfg, output=out.replace(".mp4", "_1card.mp4")),
                         devices=[torch.device("cuda", 0)])
                     say(f"[video fhd {tag}] on 1 card: {one['frames'] / one['wall_s']:.3f} frames/s end "
-                        f"to end, {one['steady_fps']:.3f} steady (all {n_cards}: "
-                        f"{stats['frames'] / stats['wall_s']:.3f}, {steady})")
+                        f"to end (all {n_cards}: {stats['frames'] / stats['wall_s']:.3f})")
                     fhd_stats["default on 1 card"] = one
         return path_launches, fhd_stats
     finally:
@@ -1779,11 +1772,9 @@ def fleet_phase(fhd_video_stats, smi) -> dict:
             check(r["background"] == r["batches"] > 0,
                   f"fleet fhd {tag}: {BACKGROUND} {r['background']} in "
                   f"{r['batches']} batches")
-        steady = ("n/a (one batch)" if stats["steady_fps"] is None
-                  else f"{stats['steady_fps']:.3f}")
         say(f"[fleet fhd {tag}] {smi}: {' '.join(argv[:-2])} in {n_proc} processes: "
             f"24 frames (+{stats['padded']} padding) in {stats['wall_s']:.2f} s, "
-            f"{stats['frames'] / stats['wall_s']:.3f} frames/s end to end, {steady} steady; process "
+            f"{stats['frames'] / stats['wall_s']:.3f} frames/s end to end; process "
             f"0's per-frame medians ms: "
             + ", ".join(f"{k} {v:.3f}" for k, v in stats["stage_ms"].items()
                         if v is not None)
@@ -1804,9 +1795,7 @@ def fleet_phase(fhd_video_stats, smi) -> dict:
     _, n_launched, n_background = fhd_fleet("2 on cuda:0", 2, None)
 
     def rates(stats):
-        steady = ("n/a (one batch)" if stats["steady_fps"] is None
-                  else f"{stats['steady_fps']:.3f}")
-        return f"{stats['frames'] / stats['wall_s']:.3f} frames/s end to end, {steady} steady"
+        return f"{stats['frames'] / stats['wall_s']:.3f} frames/s end to end"
 
     one_card = fhd_video_stats.get("default on 1 card", one)
     say(f"[fleet fhd] one process on one card in this call (phase 7d): "
@@ -2113,8 +2102,7 @@ def png_phase(launches, reset_counts, smi) -> dict:
         say(f"[video {tag} png] {smi}: --video --orbit -r fhd --n_frames 24 "
             f"{' '.join(flags)} twice, in turns ({', '.join(order)}): " + "; ".join(
                 f"{enc} {st['frames'] / st['wall_s']:.3f} frames/s end to end, "
-                + ("n/a" if st["steady_fps"] is None else f"{st['steady_fps']:.3f}")
-                + f" steady, PNG median {st['stage_ms']['png']:.3f} ms, main thread "
+                f"PNG median {st['stage_ms']['png']:.3f} ms, main thread "
                 f"waited on the writers {st['writer_wait_s']:.3f} s"
                 for enc, st in ((e, stats[e]) for e in ("native", "zlib")))
             + "; frame 23 decodes equal")
@@ -2237,16 +2225,14 @@ def tools_phase(launches, reset_counts, smi) -> dict:
 
 def bench_phase(launches, reset_counts, smi, sass, n_sms, clock_mhz) -> dict:
     """Phase 12: ``bhr_tpu_torch.bench``'s measurements, short, on the
-    card, and its regression gate -> their launches."""
-    import tempfile
-
+    card -> their launches."""
     from bhr_tpu_torch import bench
 
     path_launches = {}
 
     def measured(tag, fn, expected):
         """``fn()`` with the counts set to 0 just before and read just
-        after; ``expected(result)`` is what the bench says it launched."""
+        after; ``expected(result)`` is what the measurement says it launched."""
         reset_counts()
         out = fn()
         launched = {k: v for k, v in launches.items() if v}
@@ -2258,7 +2244,8 @@ def bench_phase(launches, reset_counts, smi, sass, n_sms, clock_mhz) -> dict:
 
     def numbers(tag, values):
         for k, v in values.items():
-            check(bench.is_number(v), f"bench {tag}: {k} = {v!r}")
+            check(isinstance(v, (int, float)) and not isinstance(v, bool)
+                  and math.isfinite(v), f"bench {tag}: {k} = {v!r}")
 
     for aa in (False, True):
         tag = "trace aa" if aa else "trace"
@@ -2286,37 +2273,6 @@ def bench_phase(launches, reset_counts, smi, sass, n_sms, clock_mhz) -> dict:
         f"rows of 4 float32: {ns:.4f} ns an index")
     numbers("gather", {"ns_per_index": ns})
 
-    # The gate: rounds 1 and 2 before this one (3), the current round's
-    # own artifact and a TPU artifact beside them, which it must not read.
-    with tempfile.TemporaryDirectory() as td:
-        for name, line in (
-                ("BENCH_TORCH_r01.json", {"metric": "fhd_dynamic_frame_ms",
-                                          "value": 100.0, "sd_frame_ms": 30.0}),
-                ("BENCH_TORCH_r02.json", {"metric": "fhd_dynamic_frame_ms",
-                                          "value": 110.0, "sd_frame_ms": 30.0}),
-                ("BENCH_TORCH_r03.json", {"metric": "fhd_dynamic_frame_ms",
-                                          "value": 1.0, "sd_frame_ms": 1.0}),
-                ("BENCH_r09.json", {"metric": "fhd_dynamic_frame_ms", "value": 1.0})):
-            with open(os.path.join(td, name), "w") as f:
-                json.dump(line, f)
-        prev = bench.load_prev_artifact(td, 3)
-        result = {"value": 120.0, "sd_frame_ms": 36.0}
-
-        def rerun(key, fn):  # a re-measure that fails before it reads
-            raise RuntimeError("the device failed")
-
-        bench.regression_check(result, prev)
-        flagged = sorted(result.get("regressions", {}))
-        bench.retry_flagged(result, {"sd_frame_ms": lambda: 30.0}, rerun, prev)
-        say(f"[bench gate] previous round {prev['round']} (of r01, r02, r03 and "
-            f"BENCH_r09 with round 3); flagged {flagged}; after a retry that "
-            f"raises: {sorted(result.get('regressions', {}))}, sd_frame_ms "
-            f"{result['sd_frame_ms']}, retry_failed {result.get('retry_failed')}")
-        check(prev["round"] == 2 and prev["metrics"]["value"] == 110.0,
-              f"bench gate read {prev}")
-        check(flagged == ["sd_frame_ms", "value"]
-              and sorted(result.get("regressions", {})) == flagged
-              and result["sd_frame_ms"] == 36.0, f"bench gate {result}")
     return path_launches
 
 
@@ -3050,7 +3006,7 @@ def main() -> int:
         for name, n in phase(launches, reset_counts, smi).items():
             path_launches[name] += n
 
-    # 12. the bench, short
+    # 12. bhr_tpu_torch.bench's measurements, short
     for name, n in bench_phase(launches, reset_counts, smi, sass, n_sms,
                                clock_mhz).items():
         path_launches[name] += n

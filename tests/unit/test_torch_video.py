@@ -17,8 +17,8 @@
   ``tests/goldens/e2e_cpu_video.npz``: the same bounds.
 * The whole ``render_video_sharded`` loop at 32x16: every frame and
   ``progress.json`` written, the padding repeats of the last batch never
-  written, ``steady_fps`` counting only the frames really rendered after
-  the first batch, frames handed over in index order on a two-slot mesh.
+  written and not counted as frames, frames handed over in index order
+  on a two-slot mesh.
 * Sequential vs batched engine: frame 0 within one uint8 step.
 """
 
@@ -287,17 +287,9 @@ def test_sharded_run_writes_frames_progress_and_no_padding(sharded_run):
 
 def test_sharded_run_stats_ignore_padding(sharded_run):
     cfg, stats = sharded_run
-    # Two batches of 4 slots: 3 real frames after the first batch, and
-    # the padding repeat is not one of them.
-    assert stats["steady_fps"] is not None
     # The rate end to end is the caller's to take: frames over wall_s.
     assert "fps" not in stats
     assert stats["frames"] / stats["wall_s"] == pytest.approx(7 / stats["wall_s"])
-    # 7 frames in batches of 4: 3 frames count, not the 4 slots rendered.
-    assert tvideo.steady_rate(7, 4, 1.5) == pytest.approx(2.0)
-    assert tvideo.steady_rate(8, 4, 2.0) == pytest.approx(2.0)
-    assert tvideo.steady_rate(4, 4, 1.0) is None
-    assert 3 / stats["wall_s"] < stats["steady_fps"]
     assert set(stats["stage_ms"]) == {"background", "texture", "trace", "shade", "post",
                                       "fetch", "png", "h264", "job_setup", "enqueue", "record", "finish", "hit_sync"}
     for name in ("background", "texture", "trace", "shade", "post", "png",
@@ -307,11 +299,11 @@ def test_sharded_run_stats_ignore_padding(sharded_run):
     assert stats["writer_wait_s"] >= 0
 
 
-def test_single_batch_has_no_steady_rate(tmp_path):
+def test_single_batch_has_no_padding(tmp_path):
     cfg = SceneConfig(device="cpu", **dict(TINY, n_frames=2),
                       output=str(tmp_path / "v.mp4")).validated()
     stats = tvideo.render_video_sharded(cfg, devices=[CPU])
-    assert (stats["frames"], stats["padded"], stats["steady_fps"]) == (2, 0, None)
+    assert (stats["frames"], stats["padded"]) == (2, 0)
 
 
 def test_engines_agree_on_frame_zero(sharded_run, tmp_path):
@@ -321,7 +313,7 @@ def test_engines_agree_on_frame_zero(sharded_run, tmp_path):
     seq = dataclasses.replace(cfg, frame_shards=1,
                               output=str(tmp_path / "seq.mp4"))
     stats = render_video(seq)
-    assert stats["frames"] == 7 and stats["steady_fps"] is None
+    assert stats["frames"] == 7
     a = load_png_rgb8(os.path.join(video_temp_paths(cfg.output)[0],
                                    "frame_0000.png")).astype(np.int32)
     b = load_png_rgb8(os.path.join(video_temp_paths(seq.output)[0],
