@@ -39,7 +39,7 @@ from .camera import Camera, build_camera
 from .config import SceneConfig, escape_radius, torch_device
 from .constants import DISK_ALPHA_GAIN, DISK_COLOR_TEMPERATURE, MAX_DISK_CROSSINGS
 from .ops import geodesic
-from .ops.bloom import apply_bloom
+from .ops.bloom import bloom_composite
 from .ops.geodesic_cuda import camera_params, kernel_name, trace_geodesics_cuda
 from .ops.lens_flare import apply_lens_flare
 from .ops.sampling import build_mipmaps, sample_disk, sample_disk_mip, sample_skybox
@@ -324,8 +324,7 @@ def post_process(bg_img: torch.Tensor, disk_img: torch.Tensor,
     if use_bloom:
         # The reference's PNG path composites the raw blur field
         # (render.py:3916-3918); see ops/bloom.py.
-        blur = apply_bloom(disk_img, width_ref=disk_img.shape[1])
-        final = torch.clamp(bg_img + disk_img + blur, 0.0, 1.0)
+        final = bloom_composite(bg_img, disk_img)
     else:
         final = torch.clamp(bg_img + disk_img, 0.0, 1.0)
     if use_flare:

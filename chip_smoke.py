@@ -23,7 +23,15 @@ exits non-zero without printing a result:
    kernel's ms beside its bound (the plain version's FP32 operations, one
    a lane and a clock) and, not as a bound, beside the plain version's
    int32 operations at 64 INT32 lanes an SM, the plain pass's ms and aten
-   calls (``background_phase``);
+   calls (``background_phase``); (2c) the bloom kernel (``csrc/bloom.cu``,
+   ptxas registers, a spill fails the run) against its plain version on
+   the bg and disk layers of a rendered FHD default and 4K AA + flare
+   frame: 0 unequal values and the largest difference, two launches a
+   call, the kernel's ms beside its bound (the blur's FP32 operations,
+   one a lane and a clock), the plain pass's ms and aten calls, and each
+   pass's kernel launches, copies and kernels by name on the card
+   (torch.profiler; a warm kernel pass makes no copy)
+   (``bloom_phase``);
 3. every instantiation (slim, AA, no disk, and each with step counts) vs
    its plain PyTorch version on the card, at the 128x32 tilt-15 parity
    scene and at the 320x180 golden scene, with the tolerances of
@@ -237,14 +245,18 @@ exits non-zero without printing a result:
    the paths of phases 5, 6c, 6d, 7d, 8, 9, 10c, 11, 12 and 13a) and of
    the background-noise kernel at phase 2b's FHD frame (its ``launches``
    summed over the same paths; its issue bound null, not worked out; no
-   pass on the card may have run the plain version), then the result
-   line ``{"ok": true, "device": {...}}`` as the last line.
+   pass on the card may have run the plain version) and of the bloom
+   kernel at phase 2c's FHD frame (its ``launches`` summed over the same
+   paths), then the result line ``{"ok": true, "device": {...}}`` as the
+   last line.
 
-Every path counted from 0 around it checks the background-noise
-kernel's launches beside the ray march's (``KernelLaunches``): one a
-lifecycle still or session step, one a card a lifecycle video batch (the
-batches counted by ``counted_batches``; a fleet's worker counts its
-own), none for the V2 disk or a static disk texture.
+Every path counted from 0 around it checks the background-noise and
+bloom kernels' launches beside the ray march's (``KernelLaunches``): a
+noise pass a lifecycle still or session step, one a card a lifecycle
+video batch (the batches counted by ``counted_batches``; a fleet's
+worker counts its own), none for the V2 disk or a static disk texture;
+two bloom launches a frame posted with bloom (a tiled still once, a
+session step only with B on).
 
 Imports torch, numpy and bhr_tpu_torch only.
 """
@@ -521,44 +533,53 @@ def check_pair(tag, name, result, exact, outliers_allowed):
 
 
 BACKGROUND = "background_noise"  # the background-noise kernel's count
+BLOOM = "bloom"  # the bloom kernel's count: two launches a frame posted with bloom
 
 
 class KernelLaunches(collections.abc.Mapping):
     """The launches of every hand-written kernel since the last
     ``reset()``: each ray-march instantiation's
-    (``trace_geodesics_cuda.launches``) and, under ``BACKGROUND``, the
-    background-noise kernel's (``generate_background_components.launches``).
-    A check that no other kernel ran thus covers the noise too: a path
-    states how many noise passes it makes (one a lifecycle still or
-    session step, one a card a video batch, none for V2 or a static
-    disk)."""
+    (``trace_geodesics_cuda.launches``), under ``BACKGROUND`` the
+    background-noise kernel's (``generate_background_components.launches``)
+    and under ``BLOOM`` the bloom kernel's (``bloom_composite.launches``).
+    A check that no other kernel ran thus covers the noise and the bloom
+    too: a path states how many noise passes it makes (one a lifecycle
+    still or session step, one a card a video batch, none for V2 or a
+    static disk) and how many frames it posts with bloom (two launches
+    each: every frame of a still, a video or a session with B on; a
+    tiled still once, over the whole frame)."""
 
     def __init__(self):
         from bhr_tpu_torch.ops.background import generate_background_components
+        from bhr_tpu_torch.ops.bloom import bloom_composite
         from bhr_tpu_torch.ops.geodesic_cuda import trace_geodesics_cuda
 
         self._trace = trace_geodesics_cuda.launches  # per instantiation
-        self._background = generate_background_components
+        self._counted = {BACKGROUND: generate_background_components, BLOOM: bloom_composite}
 
     def __getitem__(self, name):
-        return self._background.launches if name == BACKGROUND else self._trace[name]
+        return self._counted[name].launches if name in self._counted else self._trace[name]
 
     def __iter__(self):
-        return iter((*self._trace, BACKGROUND))
+        return iter((*self._trace, *self._counted))
 
     def __len__(self):
-        return len(self._trace) + 1
+        return len(self._trace) + len(self._counted)
 
     def reset(self):
         self._trace.update(dict.fromkeys(self._trace, 0))
-        self._background.launches = 0
+        for fn in self._counted.values():
+            fn.launches = 0
 
 
 def expect_launches(counts: dict, name: str, what: str, background: int = 0) -> None:
-    others = {k: v for k, v in counts.items() if k not in (name, BACKGROUND) and v}
-    check(counts[name] == 1 and counts[BACKGROUND] == background and not others,
-          f"{what} launched {counts}, expected {name} exactly once and "
-          f"{BACKGROUND} {background} times")
+    """One still frame: ``name`` once, the noise ``background`` times, one
+    bloom (two launches), nothing else."""
+    others = {k: v for k, v in counts.items() if k not in (name, BACKGROUND, BLOOM) and v}
+    check(counts[name] == 1 and counts[BACKGROUND] == background
+          and counts[BLOOM] == 2 and not others,
+          f"{what} launched {counts}, expected {name} exactly once, "
+          f"{BACKGROUND} {background} times and {BLOOM} twice")
 
 
 @contextlib.contextmanager
@@ -845,6 +866,7 @@ def tile_phase(launches, reset_counts) -> dict:
                  else [torch.device("cuda", 0)] * TILES)
     say(f"[tiles] {TILES} bands on {', '.join(map(str, tile_devs))} "
         f"({n_cards} card(s) visible)")
+    bloom_launches = 0
     for scene in ("default", "aa"):
         extra, expected = SCENES[scene]
         reset_counts()
@@ -867,11 +889,12 @@ def tile_phase(launches, reset_counts) -> dict:
         check(diff.max() <= 5e-2 and diff.mean() <= 5e-4,
               f"tiled golden {scene} outside bounds")
         others = {k: v for k, v in launched.items()
-                  if k not in (expected, BACKGROUND) and v}
+                  if k not in (expected, BACKGROUND, BLOOM) and v}
         check(launched[expected] == TILES and launched[BACKGROUND] == 1
-              and not others,
+              and launched[BLOOM] == 2 and not others,
               f"tiled golden {scene} launched {launched}, expected {expected} "
-              f"{TILES} times and {BACKGROUND} once")
+              f"{TILES} times, {BACKGROUND} once and {BLOOM} twice")
+        bloom_launches += launched[BLOOM]
 
     # 6c. the tile path at full width: the 4K AA + flare still in bands,
     # against the same frame rendered whole on the same card.
@@ -885,13 +908,15 @@ def tile_phase(launches, reset_counts) -> dict:
     t_tiled = time.perf_counter() - t0
     launched = dict(launches)
     others = {k: v for k, v in launched.items()
-              if k not in ("ray_march_aa", BACKGROUND) and v}
+              if k not in ("ray_march_aa", BACKGROUND, BLOOM) and v}
     say(f"[tiles 4k] {' '.join(flags_4k)} --tile_shards {TILES}: "
         f"{t_tiled:.2f} s; ray_march_aa launches {launched['ray_march_aa']}, "
-        f"{BACKGROUND} {launched[BACKGROUND]}")
+        f"{BACKGROUND} {launched[BACKGROUND]}, {BLOOM} {launched[BLOOM]}")
     check(launched["ray_march_aa"] == TILES and launched[BACKGROUND] == 1
-          and not others, f"4K tiled frame launched {launched}, expected "
-          f"ray_march_aa {TILES} times and {BACKGROUND} once")
+          and launched[BLOOM] == 2 and not others, f"4K tiled frame launched "
+          f"{launched}, expected ray_march_aa {TILES} times, {BACKGROUND} once "
+          f"and {BLOOM} twice")
+    bloom_launches += launched[BLOOM]
     t0 = time.perf_counter()
     whole = render_image(whole_4k)
     t_whole = time.perf_counter() - t0
@@ -920,14 +945,15 @@ def tile_phase(launches, reset_counts) -> dict:
             f"{sum(med.values()):.3f}; peak memory {peak / 2**30:.3f} GiB")
         del frame
     del tiled
+    v2_slim, v2_bloom = v2_tile_phase(launches, reset_counts, tile_devs)
     return {"ray_march_aa": launched["ray_march_aa"],
             BACKGROUND: launched[BACKGROUND],
-            "ray_march_slim": v2_tile_phase(launches, reset_counts, tile_devs)}
+            "ray_march_slim": v2_slim, BLOOM: bloom_launches + v2_bloom}
 
 
-def v2_tile_phase(launches, reset_counts, tile_devs) -> int:
+def v2_tile_phase(launches, reset_counts, tile_devs) -> tuple:
     """Phase 6d: the V2 disk in TILES row bands -> the ray_march_slim band
-    launches of the FHD and 4K V2 stills."""
+    launches and the bloom launches of the FHD and 4K V2 stills."""
     import bhr_tpu_torch.cli as cli
     from bhr_tpu_torch.config import SceneConfig
     from bhr_tpu_torch.modes import render_image
@@ -951,16 +977,18 @@ def v2_tile_phase(launches, reset_counts, tile_devs) -> int:
         check(tiled.shape == shape and np.isfinite(tiled).all()
               and tiled.max() > 0.5, f"tiled {what}: shape, finite or dark")
         check(diff.max() <= TOL_TILED, f"tiled {what} vs whole {diff.max()}")
-        others = {k: v for k, v in launched.items() if k != "ray_march_slim" and v}
-        check(launched["ray_march_slim"] == TILES and not others
-              and not plain_calls[0],
+        others = {k: v for k, v in launched.items()
+                  if k not in ("ray_march_slim", BLOOM) and v}
+        check(launched["ray_march_slim"] == TILES and launched[BLOOM] == 2
+              and not others and not plain_calls[0],
               f"tiled {what} launched {launched}, plain {plain_calls[0]}")
-        return tiled, launched["ray_march_slim"]
+        return tiled, launched
 
     golden = {**GOLDEN, **V2_SCENES["v2"]}
-    img, _ = tiled_vs_whole(
+    img, launched = tiled_vs_whole(
         "golden v2", SceneConfig(device="cuda", tile_shards=TILES, **golden),
         SceneConfig(device="cuda", **golden), (180, 320, 3))
+    n_bloom = launched[BLOOM]
     d_max, d_mean = golden_diff(img, "e2e_cpu_v2")
     say(f"[tiles golden v2] vs e2e_cpu_v2.npz max {d_max:.3e} mean {d_mean:.3e}")
     check(d_max <= 5e-2 and d_mean <= 5e-4, "tiled golden v2 outside bounds")
@@ -968,12 +996,13 @@ def v2_tile_phase(launches, reset_counts, tile_devs) -> int:
     for res, shape in (("fhd", (1080, 1920, 3)), ("4k", (2160, 3840, 3))):
         flags = ["-r", res, *V2_FLAGS["v2sci"]]
         parse = cli.build_parser().parse_args
-        _, n = tiled_vs_whole(
+        _, launched = tiled_vs_whole(
             f"{res} v2sci",
             cli.config_from_args(parse([*flags, "--tile_shards", str(TILES)])),
             cli.config_from_args(parse(flags)), shape)
-        n_launched += n
-    return n_launched
+        n_launched += launched["ray_march_slim"]
+        n_bloom += launched[BLOOM]
+    return n_launched, n_bloom
 
 
 class _Tee(io.StringIO):
@@ -986,12 +1015,14 @@ class _Tee(io.StringIO):
 
 
 def expect_video_launches(counts, name, n, background, plain_calls, what):
-    others = {k: v for k, v in counts.items() if k not in (name, BACKGROUND) and v}
-    check(counts[name] == n and counts[BACKGROUND] == background and not others
-          and not plain_calls[0],
+    """``n`` frames traced (padding included), each posted with bloom."""
+    others = {k: v for k, v in counts.items()
+              if k not in (name, BACKGROUND, BLOOM) and v}
+    check(counts[name] == n and counts[BACKGROUND] == background
+          and counts[BLOOM] == 2 * n and not others and not plain_calls[0],
           f"{what} launched {counts} and ran the plain trace {plain_calls[0]} "
-          f"times, expected {name} {n} times, {BACKGROUND} {background} times "
-          f"and nothing else")
+          f"times, expected {name} {n} times, {BACKGROUND} {background} times, "
+          f"{BLOOM} {2 * n} times and nothing else")
 
 
 def cli_video(argv, reset, launches):
@@ -1266,7 +1297,7 @@ def video_phase(launches, reset_counts) -> tuple:
                 say(f"[video fhd {tag}] probe_video: {probe}, "
                     f"{os.path.getsize(out)} bytes")
                 check(probe == (n_frames, 1920, 1080), f"probe {probe}")
-            for name in (expected, BACKGROUND):
+            for name in (expected, BACKGROUND, BLOOM):
                 path_launches[name] = path_launches.get(name, 0) + launched[name]
             if tag == "v2":
                 check("texture" not in stats["stage_ms"]
@@ -1317,7 +1348,7 @@ def interactive_phase(launches, reset_counts, smi) -> dict:
             ["--interactive", "-r", "fhd", *flags]))
 
     cfg = parse([])
-    path = {"ray_march_slim": 0, "ray_march_aa": 0, BACKGROUND: 0}
+    path = {"ray_march_slim": 0, "ray_march_aa": 0, BACKGROUND: 0, BLOOM: 0}
     counting = contextlib.ExitStack()
     plain_calls = counting.enter_context(counted_plain_traces())
 
@@ -1325,18 +1356,21 @@ def interactive_phase(launches, reset_counts, smi) -> dict:
         reset_counts()
         plain_calls[0] = 0
 
-    def expect(what, slim, aa, background):
+    def expect(what, slim, aa, background, bloomed=None):
+        # bloomed: the frames rendered with B on (by default all of them).
+        bloom = 2 * (slim + aa if bloomed is None else bloomed)
         launched = dict(launches)
         others = {k: v for k, v in launched.items() if k not in path and v}
         check(launched["ray_march_slim"] == slim and launched["ray_march_aa"] == aa
-              and launched[BACKGROUND] == background
+              and launched[BACKGROUND] == background and launched[BLOOM] == bloom
               and not others and not plain_calls[0],
               f"{what} launched {launched} and ran the plain trace "
               f"{plain_calls[0]} times, expected slim {slim}, aa {aa}, "
-              f"{BACKGROUND} {background}")
+              f"{BACKGROUND} {background}, {BLOOM} {bloom}")
         path["ray_march_slim"] += slim
         path["ray_march_aa"] += aa
         path[BACKGROUND] += background
+        path[BLOOM] += bloom
 
     def lit(frame, what):
         check(isinstance(frame, np.ndarray) and frame.shape == (1080, 1920, 3)
@@ -1352,10 +1386,15 @@ def interactive_phase(launches, reset_counts, smi) -> dict:
         reset()
         sess = InteractiveSession(cfg)
         check(sess._fused is not None and sess.lookahead, "no fused session")
-        made = []
+        made, bloomed = [], []
         real = sess._fused.render_async
-        sess._fused.render_async = lambda *a, **kw: made.append(
-            real(*a, **kw)) or made[-1]
+
+        def render_async(*a, **kw):
+            bloomed.append(bool(a[5]))  # (cam_pos, fov, t, entities, diff, bloom, ...)
+            made.append(real(*a, **kw))
+            return made[-1]
+
+        sess._fused.render_async = render_async
         for i in range(12):
             lit(sess.step(0.05), f"interactive step {i}")
         steps = {False: 12, True: 0}  # by the state of the 'd' toggle
@@ -1369,11 +1408,15 @@ def interactive_phase(launches, reset_counts, smi) -> dict:
                           f"the first frame shown after key {key} was rendered "
                           f"before it")
                 steps[sess.diff] += 1
+        check(len(bloomed) == sess.frames and 0 < sum(bloomed) < sess.frames,
+              f"key script: bloom on in {sum(bloomed)} of {len(bloomed)} renders, "
+              f"{sess.frames} frames")
         expect("the interactive key script", steps[False], steps[True],
-               sess.frames)
+               sess.frames, sum(bloomed))
         say(f"[interactive keys] {sess.frames} steps, keys d b l 6 0 + up: "
             f"ray_march_slim launches {steps[False]} (d off), ray_march_aa "
-            f"{steps[True]} (d on), {BACKGROUND} {sess.frames}, plain trace "
+            f"{steps[True]} (d on), {BACKGROUND} {sess.frames}, {BLOOM} "
+            f"{2 * sum(bloomed)} (b on in {sum(bloomed)} renders), plain trace "
             f"calls {plain_calls[0]}; every "
             f"first frame after a key was rendered after it; "
             f"{len(sess._fused._renderers)} renderer closures kept; HUD: "
@@ -1510,7 +1553,8 @@ def interactive_phase(launches, reset_counts, smi) -> dict:
 
 # One process of a fleet: ``worker.py MODE PID N_PROC PORT OUTDIR``. It
 # joins the group (the CLI modes let ``cli.main`` do that), counts its
-# kernel launches (the background-noise kernel's under "background"),
+# kernel launches (the background-noise kernel's under "background", the
+# bloom kernel's under "bloom"),
 # plain trace calls, batches and progress.json writes, and prints them on
 # "FLEET ..." lines.
 FLEET_WORKER = r"""
@@ -1521,6 +1565,7 @@ import torch
 import bhr_tpu_torch.parallel.video as V
 from bhr_tpu_torch.ops import geodesic_cuda
 from bhr_tpu_torch.ops.background import generate_background_components as bg
+from bhr_tpu_torch.ops.bloom import bloom_composite
 from bhr_tpu_torch.ops.geodesic_cuda import trace_geodesics_cuda
 launches = trace_geodesics_cuda.launches
 counts = {"plain": 0, "progress_writes": 0, "batches": 0}
@@ -1539,10 +1584,11 @@ geodesic_cuda.trace_geodesics, V.write_json_atomic = counted_trace, counted_writ
 V.render_video_frames_sharded = counted_frames
 def report(tag, stats):
     print("FLEET " + json.dumps({"tag": tag, "pid": pid, "launches": dict(launches),
-                                 "background": bg.launches, **counts,
+                                 "background": bg.launches,
+                                 "bloom": bloom_composite.launches, **counts,
                                  "stats": stats}), flush=True)
     launches.update(dict.fromkeys(launches, 0))
-    bg.launches = 0
+    bg.launches = bloom_composite.launches = 0
     counts.update(plain=0, progress_writes=0, batches=0)
 address = "127.0.0.1:" + port
 if mode.startswith("cli:"):
@@ -1704,6 +1750,8 @@ def fleet_phase(fhd_video_stats, smi) -> dict:
             others = {k: v for k, v in r["launches"].items()
                       if k != "ray_march_slim" and v}
             check(not others and not r["plain"], f"fleet {name}: {r}")
+            check(r["bloom"] == 2 * r["launches"]["ray_march_slim"],
+                  f"fleet {name}: {BLOOM} {r['bloom']}, a frame posts once")
             # Each process's card: one background pass a lifecycle batch.
             check(r["background"] == (r["batches"] if name == "golden" else 0),
                   f"fleet {name}: {BACKGROUND} {r['background']} in "
@@ -1769,6 +1817,8 @@ def fleet_phase(fhd_video_stats, smi) -> dict:
             others = {k: v for k, v in r["launches"].items()
                       if k != "ray_march_slim" and v}
             check(not others, f"fleet fhd {tag}: {r['launches']}")
+            check(r["bloom"] == 2 * r["launches"]["ray_march_slim"],
+                  f"fleet fhd {tag}: {BLOOM} {r['bloom']}, a frame posts once")
             check(r["background"] == r["batches"] > 0,
                   f"fleet fhd {tag}: {BACKGROUND} {r['background']} in "
                   f"{r['batches']} batches")
@@ -1800,7 +1850,7 @@ def fleet_phase(fhd_video_stats, smi) -> dict:
     one_card = fhd_video_stats.get("default on 1 card", one)
     say(f"[fleet fhd] one process on one card in this call (phase 7d): "
         f"{rates(one_card)}")
-    path = {"ray_march_slim": n_launched, BACKGROUND: n_background}
+    path = {"ray_march_slim": n_launched, BACKGROUND: n_background, BLOOM: 2 * n_launched}
     if n_cards > 1:
         # Optimisation B's measurement: a process per card beside one
         # process (one host thread) over all cards.
@@ -1811,6 +1861,7 @@ def fleet_phase(fhd_video_stats, smi) -> dict:
             [{"CUDA_VISIBLE_DEVICES": k} for k in visible])
         path["ray_march_slim"] += n
         path[BACKGROUND] += n_background
+        path[BLOOM] += 2 * n
         say(f"[fleet fhd] a process per card: {rates(per_card)}; one process "
             f"over all {n_cards} cards (phase 7d): {rates(one)}; one process on "
             f"one card: {rates(one_card)}")
@@ -1971,7 +2022,7 @@ def auto_disk_phase(launches, reset_counts, cache_dir) -> dict:
 
     # 10c. the FHD still through the CLI: cold (the texture generated and
     # saved), warm (loaded from the cache), AA + flare, and in bands.
-    path = {"ray_march_slim": 0, "ray_march_aa": 0}
+    path = {"ray_march_slim": 0, "ray_march_aa": 0, BLOOM: 0}
     cache_file = os.path.join(cache_dir, texture_cache_key(
         fhd.disk_inner_radius, fhd.disk_outer_radius, fhd.seed, *fhd_size, scale))
     check(not os.path.exists(cache_file), "the FHD texture is cached before its cold run")
@@ -1996,6 +2047,7 @@ def auto_disk_phase(launches, reset_counts, cache_dir) -> dict:
         check(saved in (None, stamp), f"FHD auto {tag} regenerated a cached texture")
         saved = stamp
         path[expected] += launched[expected]
+        path[BLOOM] += launched[BLOOM]
     t0 = time.perf_counter()
     np.load(cache_file)
     say(f"[auto cache] {os.path.getsize(cache_file)} bytes, np.load "
@@ -2026,12 +2078,15 @@ def auto_disk_phase(launches, reset_counts, cache_dir) -> dict:
     say(f"[tiles fhd auto] {TILES} bands on {', '.join(map(str, tile_devs))} vs the "
         f"whole frame: max {diff.max():.3e}; ray_march_slim band launches "
         f"{launched['ray_march_slim']}, plain trace calls {plain_calls[0]}")
-    others = {k: v for k, v in launched.items() if k != "ray_march_slim" and v}
-    check(launched["ray_march_slim"] == TILES and not others and not plain_calls[0],
+    others = {k: v for k, v in launched.items()
+              if k not in ("ray_march_slim", BLOOM) and v}
+    check(launched["ray_march_slim"] == TILES and launched[BLOOM] == 2
+          and not others and not plain_calls[0],
           f"tiled FHD auto launched {launched}, plain {plain_calls[0]}")
     check(tiled.shape == (1080, 1920, 3) and diff.max() <= TOL_TILED,
           f"tiled FHD auto vs whole {diff.max()}")
     path["ray_march_slim"] += launched["ray_march_slim"]
+    path[BLOOM] += launched[BLOOM]
     return path
 
 
@@ -2068,7 +2123,7 @@ def png_phase(launches, reset_counts, smi) -> dict:
 
     # The same videos with each encoder, in turns; the zlib runs patch
     # native.png_available, so save_image takes its standard-library path.
-    path_launches = {"ray_march_slim": 0, BACKGROUND: 0}
+    path_launches = {"ray_march_slim": 0, BACKGROUND: 0, BLOOM: 0}
     real = native.png_available
     for tag, flags, order in (("fhd v2", V2_FLAGS["v2"], ("native", "zlib")),
                               ("fhd", [], ("zlib", "native"))):
@@ -2087,9 +2142,10 @@ def png_phase(launches, reset_counts, smi) -> dict:
             # One background pass a card a lifecycle batch, none for V2.
             background = 0 if flags else n_batches * torch.cuda.device_count()
             others = {k: v for k, v in launched.items()
-                      if k not in ("ray_march_slim", BACKGROUND) and v}
+                      if k not in ("ray_march_slim", BACKGROUND, BLOOM) and v}
             check(launched["ray_march_slim"] == 24 + stats[encoder]["padded"]
                   and launched[BACKGROUND] == background and n_batches > 0
+                  and launched[BLOOM] == 2 * launched["ray_march_slim"]
                   and not others and stats[encoder]["frames"] == 24,
                   f"video {tag} ({encoder}): {launched} in {n_batches} batches, "
                   f"{stats[encoder]}")
@@ -2119,7 +2175,7 @@ def extreme_phase(launches, reset_counts, smi) -> dict:
     sky = generate_skybox(256, 128, seed=5, n_stars=200)
     disk = np.random.default_rng(2).random((24, 64, 4)).astype(np.float32)
     w, h = EXTREME_FRAME
-    path_launches = {"ray_march_slim": 0, "ray_march_aa": 0}
+    path_launches = {"ray_march_slim": 0, "ray_march_aa": 0, BLOOM: 0}
     for tag, changes in EXTREME_SCENES.items():
         kw = dict(dict(fov=60.0, pov=POV, disk_inner_radius=2.0,
                        disk_outer_radius=3.5, n_stars=200), **changes)
@@ -2135,6 +2191,7 @@ def extreme_phase(launches, reset_counts, smi) -> dict:
                     expect_launches(launched, name, f"extreme {tag} frame")
                     check(not plain_calls[0], f"extreme {tag}: the card ran the plain trace")
                     path_launches[name] += launched[name]
+                    path_launches[BLOOM] += launched[BLOOM]
         img, ref = frames["cuda"], frames["cpu"]
         diff = np.abs(img.astype(np.float64) - ref.astype(np.float64))
         black = tag == "fov 1"
@@ -2187,14 +2244,14 @@ def tools_phase(launches, reset_counts, smi) -> dict:
          [f"{out}/v2_{p}.png" for p in ("top", "density", "temperature")], {}),
         ("compare_aa", compare_aa, ["--out", f"{out}/aa_compare.png"],
          [f"{out}/aa_compare.png"],
-         {"ray_march_slim": 1, "ray_march_aa": 1, BACKGROUND: 2}),
+         {"ray_march_slim": 1, "ray_march_aa": 1, BACKGROUND: 2, BLOOM: 4}),
         ("rotation_experiments --verify", rotation_experiments,
          ["--verify", "--out", f"{out}/rotation"],
          [f"{out}/rotation/{p}.png" for p in rotation_pngs], {BACKGROUND: 4}),
         # A texture stage (one background pass) per trace: 1 + 9 timed by
-        # device_time + 4 by the stage timer.
+        # device_time + 4 by the stage timer; the post stage 9 + 4 times.
         ("profile_pipeline", profile_pipeline, [], [],
-         {"ray_march_slim": 14, BACKGROUND: 14}),
+         {"ray_march_slim": 14, BACKGROUND: 14, BLOOM: 26}),
     )
     path_launches = {}
     for tag, tool, args, pngs, expected in runs:
@@ -2261,7 +2318,8 @@ def bench_phase(launches, reset_counts, smi, sass, n_sms, clock_mhz) -> dict:
             check(0.0 < tr[k] <= 1.05, f"bench {tag}: {k} {tr[k]}")
     # One background pass a batch of 4 frames on the one card.
     sd = measured("sd frame", lambda: bench.time_resolution("sd", 4),
-                  lambda r: {"ray_march_slim": r["frames"], BACKGROUND: r["frames"] // 4})
+                  lambda r: {"ray_march_slim": r["frames"], BACKGROUND: r["frames"] // 4,
+                             BLOOM: 2 * r["frames"]})
     say(f"[bench sd frame] {smi}: bench scene 640x360, batch 4: median "
         f"{sd['frame_ms']:.3f} ms a frame over 5 batches (spread "
         f"{sd['spread'][0]:.3f}-{sd['spread'][1]:.3f}); {sd['frames']} frames, "
@@ -2332,7 +2390,8 @@ def nan_trap_phase(launches, reset_counts, smi) -> dict:
                     ms[on].append((time.perf_counter() - t0) * 1e3)
                     n_checks[on].append(len(checks))
                 launched = {k: v for k, v in launches.items() if v}
-            want = {k: v for k, v in ((kernel, frames), (BACKGROUND, background)) if v}
+            want = {k: v for k, v in ((kernel, frames), (BACKGROUND, background),
+                                      (BLOOM, 2 * frames)) if v}
             check(launched == want, f"[nans {tag}] launched {launched}, expected {want}")
             for k, v in want.items():
                 path_launches[k] = path_launches.get(k, 0) + v
@@ -2673,6 +2732,130 @@ def background_phase(smi, n_sms, clock_mhz) -> dict:
     return row
 
 
+def bloom_phase(smi, n_sms, clock_mhz) -> dict:
+    """Phase 2c: the bloom kernel (``csrc/bloom.cu``) against its plain
+    version on the card, on the bg and disk layers of a rendered frame:
+    the FHD default scene and the 4K AA + flare scene of the benchmark's
+    cells. Unequal values (0 expected; NaN where the plain version has
+    it), two launches a call, the kernel's ms (CUDA events, the mean of
+    20 calls after 3 warm-ups) beside its bound (the blur's FP32
+    operations, one a lane and a clock, or the layers read once and the
+    frame written once at 3.35 TB/s) and the plain pass's ms (host clock,
+    synchronized) and aten calls, and what each pass launched on the card
+    (torch.profiler). Returns the FHD numbers for phase 14's
+    JSON row, with the largest |kernel - plain| of both frames."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    import bhr_tpu_torch.cli as cli
+    from bhr_tpu_torch import _build
+    from bhr_tpu_torch.modes import _make_renderer
+    from bhr_tpu_torch.ops.bloom import bloom_composite, bloom_composite_plain, bloom_tables
+
+    t0 = time.perf_counter()
+    built = _build.build("bloom")
+    say(f"[build] bloom: {time.perf_counter() - t0:.2f} s "
+        f"(nvcc {built.seconds:.2f} s) -> {os.path.relpath(built.path, ROOT)}")
+    for line in built.log.splitlines():
+        entry = re.search(r"entry function '.*(bloom_rows|bloom_cols)", line)
+        if entry:
+            say(f"[build] ptxas bloom: {entry.group(1)}")
+        elif "registers" in line or "spill" in line:
+            say(f"[build] ptxas bloom: {line.strip()}")
+            spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            check(not spills or spills.groups() == ("0", "0"), f"ptxas spills: {line}")
+
+    class Calls(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Calls.n += 1
+            return func(*args, **(kwargs or {}))
+
+    def on_card(fn):
+        """(launch calls, host-to-device or other copy calls, {kernel: count})
+        of one call of ``fn``, from torch.profiler; launches counted as the
+        benchmark's device trace counts them (``devtrace.LAUNCH_CALLS``)."""
+        from torch.profiler import ProfilerActivity, profile
+
+        from benchmark.devtrace import LAUNCH_CALLS, short_name
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        rows = prof.key_averages()
+        kernels = collections.Counter()
+        for e in rows:
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                name = short_name(e.key)
+                # The innermost functor names the op (BinaryFunctor<..., MulFunctor>).
+                functor = re.findall(r"\w+Functor\w*|\w+_kernel_impl\w*", name.split("(")[0])
+                kernels[functor[-1] if functor else name[:60]] += e.count
+        return (sum(e.count for e in rows if e.key in LAUNCH_CALLS),
+                sum(e.count for e in rows if e.key.startswith("cudaMemcpy")),
+                dict(kernels.most_common()))
+
+    lane_rate = n_sms * ISSUE_LANES_PER_SM * clock_mhz * 1e6
+    row = {}
+    for tag, flags in (("fhd", ["-r", "fhd"]), ("4k", ["-r", "4k", *AA_FLAGS])):
+        cfg = cli.config_from_args(cli.build_parser().parse_args(flags))
+        renderer, dynamic = _make_renderer(cfg)
+        renderer.update_disk_texture(dynamic.advance(t=0.0, dt=0.0, recompute_stats=True))
+        bg, disk = renderer.render_layers(cfg.pov, cfg.fov)
+        del renderer, dynamic
+        (w, h), radius = cfg.image_size, bloom_tables(*cfg.image_size[::-1])[0]
+        what = f"[bloom {tag} {w}x{h} R={radius}]"
+        before = bloom_composite.launches
+        got = bloom_composite(bg, disk)
+        launched = bloom_composite.launches - before
+        want = bloom_composite_plain(bg, disk)
+        torch.cuda.synchronize()
+        nan = torch.isnan(want)
+        unequal = int((got[~nan] != want[~nan]).sum()) + int((torch.isnan(got) != nan).sum())
+        err = float((got[~nan] - want[~nan]).abs().max())
+        row["max_abs_err"] = max(row.get("max_abs_err", 0.0), err)
+        say(f"{what}: {unequal} unequal values of {got.numel()}, max |kernel - "
+            f"plain| {err:.3e} off NaN; disk layer "
+            f"max {float(disk.max()):.4f}, {float((disk.sum(-1) > 0).float().mean()):.1%} "
+            f"of pixels lit; kernel launches {launched}")
+        check(launched == 2, f"{what}: {launched} launches")
+        check(unequal == 0, f"{what}: {unequal} values differ from the plain version")
+        del got, want
+        for _ in range(3):
+            bloom_composite(bg, disk)
+        _, ms = cuda_ms(lambda: bloom_composite(bg, disk), 20)
+        plain_ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            bloom_composite_plain(bg, disk)
+            torch.cuda.synchronize()
+            plain_ms.append((time.perf_counter() - t1) * 1e3)
+        Calls.n = 0
+        with Calls():
+            bloom_composite_plain(bg, disk)
+        for route, fn in (("kernel", bloom_composite), ("plain", bloom_composite_plain)):
+            n_launch, n_copy, kernels = on_card(lambda: fn(bg, disk))
+            say(f"{what} {route} pass on the card: {n_launch} kernel launches, "
+                f"{n_copy} copy calls; kernels {kernels}")
+            if route == "kernel":
+                check(n_copy == 0, f"{what}: a warm kernel pass made {n_copy} copies")
+        ops = 2 * (2 * radius + 1) * 2 * h * w * 3  # 2 passes, a multiply and an add a tap
+        ops_ms = ops / lane_rate * 1e3
+        bytes_ms = 3 * h * w * 3 * 4 / 3.35e12 * 1e3  # bg and disk read, the frame written
+        bound_ms, bound_by = max((ops_ms, "operations"), (bytes_ms, "bytes"))
+        say(f"{what} {smi}: kernel {ms:.4f} ms a frame; bound {bound_ms:.4f} ms by "
+            f"{bound_by} ({ops:.4e} FP32 operations at {lane_rate:.4e}/s; bytes "
+            f"{bytes_ms:.4f} ms at 3.35 TB/s), the kernel at {bound_ms / ms:.1%} of "
+            f"it; plain pass {min(plain_ms):.2f}-{max(plain_ms):.2f} ms, "
+            f"{Calls.n} aten calls")
+        if tag == "fhd":
+            row.update(ms=ms, plain_ms=min(plain_ms), bound_ms=bound_ms,
+                       bound_by=bound_by)
+        del bg, disk
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -2737,6 +2920,9 @@ def main() -> int:
 
     # 2b. the background-noise kernel vs its plain version
     bg_row = background_phase(smi, n_sms, clock_mhz)
+
+    # 2c. the bloom kernel vs its plain version, on rendered frames
+    bloom_row = bloom_phase(smi, n_sms, clock_mhz)
 
     # 3. kernel vs plain at the small shapes
     for tag, args, reps in (
@@ -2808,7 +2994,7 @@ def main() -> int:
         images[scene] = img
 
     # 5. the main paths at full width
-    path_launches = {BACKGROUND: 0}
+    path_launches = {BACKGROUND: 0, BLOOM: 0}
 
     def cli_frame(tag, flags, expected, background=0):
         out_png = os.path.join("output", f"torch_fhd_{tag}.png")
@@ -2823,6 +3009,7 @@ def main() -> int:
         expect_launches(launched, expected, f"FHD {tag} frame", background)
         path_launches[expected] = path_launches.get(expected, 0) + launched[expected]
         path_launches[BACKGROUND] += background
+        path_launches[BLOOM] += launched[BLOOM]
 
     cli_frame("default", [], "ray_march_slim", background=1)
     cli_frame("aa_flare", AA_FLAGS, "ray_march_aa", background=1)
@@ -2873,6 +3060,7 @@ def main() -> int:
           "FHD no-disk frame")
     expect_launches(launched, "ray_march_nodisk", "FHD no-disk frame")
     path_launches["ray_march_nodisk"] = launched["ray_march_nodisk"]
+    path_launches[BLOOM] += launched[BLOOM]
 
     # Every instantiation vs its plain version at FHD. The step-count
     # instantiations run on no frame's path: their path is this
@@ -3022,6 +3210,7 @@ def main() -> int:
           f"{generate_background_components.plain_passes} background passes "
           "on the card ran the plain version")
     check(path_launches[BACKGROUND] > 0, "no main path launched the background kernel")
+    check(path_launches[BLOOM] > 0, "no main path launched the bloom kernel")
     say(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
@@ -3053,6 +3242,19 @@ def main() -> int:
         # version's int32 work beside the FP32 bound instead).
         "issue_bound_ms": None,
         "library_ms": None,  # no PyTorch call computes the noise
+    }, {
+        "name": "bloom",
+        "route": "cuda",
+        "source": "bhr_tpu_torch/csrc/bloom.cu",
+        "replaces": None,  # XLA fused the bloom on the TPU
+        "launches": path_launches[BLOOM],
+        "max_abs_err": bloom_row["max_abs_err"],
+        "ms": bloom_row["ms"],
+        "plain_ms": bloom_row["plain_ms"],
+        "bound_ms": bloom_row["bound_ms"],
+        "bound_by": bloom_row["bound_by"],
+        "issue_bound_ms": None,  # not worked out
+        "library_ms": None,  # the port calls no library blur
     }]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
