@@ -11,7 +11,10 @@ record. A new scene, mix or metric is new files plus new entries.
 A driver module has ``setup(run)``, ``window(run, seconds)``,
 ``end_to_end(run)``, ``traced(run)``, ``release(run)`` and
 ``check(run)``; it calls the port only through ``SceneConfig``,
-``modes.render_video`` and ``InteractiveSession``.
+``modes.render_video``, ``InteractiveSession``, ``modes.render_image``
+and ``utils.io.save_image`` (the still driver, which also times three of
+the port's calls in its traced run and empties the static texture's
+cache, ``utils.cache.DEFAULT_CACHE_DIR``, after each still).
 """
 
 from __future__ import annotations

@@ -21,6 +21,9 @@ TINY_TRAFFIC = {
               "frame_shards": 2},
     "session": {"warm_steps": 3, "traced_steps": 2, "key_steps": 2,
                 "sample_steps": 2},
+    "video_aa": {"warm_frames": 4, "traced_frames": 4, "strata": 2,
+                 "frame_shards": 2},
+    "still": {"warm_stills": 1, "traced_stills": 2, "sample_stills": 2},
 }
 
 

@@ -4,7 +4,8 @@ port broken underneath, must print ``correct`` false. One fault of each
 kind the cells can have: an answer altered where it is produced, half
 of a batch left out, a step that returns its state unchanged, the
 frames of every card but the first lost on their way to the host, and
-one card's frames wrong."""
+one card's frames wrong; for a still, its PNG missing, the wrong disk
+seed, and the first still's frame returned for every later one."""
 
 from __future__ import annotations
 
@@ -134,4 +135,78 @@ def test_a_step_that_returns_its_state_unchanged(in_workdir, capsys, monkeypatch
 
     monkeypatch.setattr(InteractiveSession, "step", stale)
     line = _line(capsys, "fhd_lifecycle.session", "session")
+    assert line["correct"] is False and line["failed"] > 0
+
+
+STILLS = ("fhd_lifecycle.still", "fhd_static.still")
+
+
+def _broken_render(monkeypatch, change):
+    """Make ``modes.render_image`` return ``change(render_image, config,
+    k)``, ``k`` counting its calls."""
+    from bhr_tpu_torch import modes
+
+    render = modes.render_image
+    calls = [0]
+
+    def patched(config):
+        calls[0] += 1
+        return change(render, config, calls[0])
+
+    monkeypatch.setattr(modes, "render_image", patched)
+
+
+@pytest.mark.parametrize("workload", STILLS)
+def test_a_still_with_the_wrong_disk_seed(in_workdir, capsys, monkeypatch, workload):
+    import dataclasses
+
+    _broken_render(monkeypatch, lambda render, cfg, k: render(
+        dataclasses.replace(cfg, seed=cfg.seed + 1)))
+    line = _line(capsys, workload, "still")
+    assert line["correct"] is False and line["failed"] > 0
+
+
+@pytest.mark.parametrize("workload", STILLS)
+def test_a_still_that_repeats_the_first(in_workdir, capsys, monkeypatch, workload):
+    """The renderer's state left as it was: every still is the first one's
+    frame again, whatever its camera or seed."""
+    first = []
+
+    def stale(render, cfg, k):
+        img = render(cfg)
+        if not first:
+            first.append(img.copy())
+        return first[0]
+
+    _broken_render(monkeypatch, stale)
+    line = _line(capsys, workload, "still")
+    assert line["correct"] is False and line["failed"] > 0
+
+
+def test_an_altered_still(in_workdir, capsys, monkeypatch):
+    """A patch of pixels one step brighter where the still is produced."""
+    def brighter(render, cfg, k):
+        img = render(cfg).copy()
+        img[4:20, 4:40] = (img[4:20, 4:40] + 1.5 / 255.0).clip(0.0, 1.0)
+        return img
+
+    _broken_render(monkeypatch, brighter)
+    line = _line(capsys, "fhd_lifecycle.still", "still")
+    assert line["correct"] is False and line["failed"] > 0
+
+
+def test_a_still_whose_png_is_missing(in_workdir, capsys, monkeypatch):
+    """Every second still's PNG never reaches the disk."""
+    from bhr_tpu_torch.utils import io
+
+    save = io.save_image
+    calls = [0]
+
+    def lossy(image, path):
+        calls[0] += 1
+        if calls[0] % 2:
+            save(image, path)
+
+    monkeypatch.setattr(io, "save_image", lossy)
+    line = _line(capsys, "fhd_static.still", "still")
     assert line["correct"] is False and line["failed"] > 0
