@@ -1,5 +1,6 @@
-"""The controls of the comparison for a ``video_aa`` cell, as
-``calibrate.py`` gives them for ``video``: the AA reference
+"""The controls of the comparison for an anti-aliased cell, a ``video_aa``
+cell or a still cell whose scene has ``anti_alias``, as ``calibrate.py``
+gives the bfloat16 one for every cell: the AA reference
 (``reference/frame_aa.py``) changed one way, on the cell's own frames
 and size.
 
@@ -10,7 +11,8 @@ Controls: ``bf16`` (every stage's output rounded to bfloat16, below the
 float32 that the configuration states), ``level0`` (every hit sampled
 at mip level 0: ``aa_strength`` 0) and ``noflare`` (the lens flare left
 out). For each seed it renders the frames a run of the cell compares
-(the sampled orbit frames of a job) with the float32 reference and with
+(``calibrate.FRAMES``: the sampled orbit frames of a job, or a sample of
+a window of stills and its last) with the float32 reference and with
 each control, and prints the comparison's numbers of each control, one
 JSON line per seed and control. The smallest ``bf16`` numbers over the
 seeds are the limits' upper reading (``PERF.md``); each of the others
@@ -32,39 +34,22 @@ CONTROLS = {
 
 
 def control_numbers(workload: str, seed: int, controls=("bf16",),
-                    device: str = "cuda:0", overrides=None) -> list:
-    """[{number: worst value} of each control against the reference]."""
-    from . import compare
-    from .drivers.video import sample_frames
-    from .harness import Run
-    from .reference.frame import video_frames
-    from .reference.frame_aa import Scene
+                    device: str = "cuda:0", overrides=None, spec=None) -> list:
+    """[{number: worst value} of each control against the AA reference],
+    over the frames a run of the cell compares."""
+    from . import calibrate
+    from .harness import find_cell, load_benchmark, load_config, load_traffic
 
-    run = Run(workload, seed, 0.0, False, overrides=overrides)
-    try:
-        if run.traffic["driver"] != "video_aa":
-            raise ValueError(f"{workload} is not a video_aa cell")
-        n = int(run.scene["n_frames"])
-        idx = sample_frames(n, int(run.traffic["strata"]), seed)
-        dev = device if run.device == "cuda" else "cpu"
-
-        def frames(scene, lowp=False):
-            return {i: v.cpu().numpy() for i, v in video_frames(
-                Scene(scene, dev, lowp=lowp), n, idx).items()}
-
-        ref = frames(run.scene)
-        out = []
-        for name in controls:
-            changes, lowp = CONTROLS[name]
-            ctl = frames(dict(run.scene, **changes), lowp)
-            failed, numbers = compare.judge(
-                ((i, ctl[i], ref[i]) for i in idx), run.limits)
-            out.append({"workload": workload, "seed": seed, "control": name,
-                        "frames": idx, "failed": len(failed),
-                        **{k: v for k, v, _ in numbers}})
-        return out
-    finally:
-        run.close()
+    spec = spec if spec is not None else load_benchmark()
+    cell = find_cell(spec, workload)
+    driver = load_traffic(cell["traffic"])["driver"]
+    scene = dict(load_config(cell["config"])["scene"],
+                 **(overrides or {}).get("scene", {}))
+    if driver not in ("video_aa", "still") or scene["anti_alias"] == "disabled":
+        raise ValueError(f"{workload} ({driver!r} driver) is not an "
+                         "anti-aliased video_aa or still cell")
+    return calibrate.controls(workload, seed, {n: CONTROLS[n] for n in controls},
+                              device, overrides, spec)
 
 
 def main(argv=None) -> int:

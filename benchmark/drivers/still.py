@@ -20,13 +20,22 @@ Traffic parameters:
   (``disk_texture: "auto"``) every still then misses the texture cache:
   it generates the texture, saves the ``.npy`` and renders. The harness
   deletes the cache file after the still, outside the timed interval.
+- ``tile_shards`` (default 0): the CLI's ``--tile_shards``. Above 1,
+  ``render_image`` renders the still in that many row bands over as many
+  of the cell's cards (``parallel/frames.render_image_tiled``): each card
+  traces and shades its band, card 0 gathers them and runs bloom, the
+  clamp and the flare over the whole frame. More bands than the cell has
+  chips are refused at set-up.
 - ``warm_stills`` (set-up), ``traced_stills`` (profiled in a ``--trace 1``
   run, then as many again with the layers timed), ``sample_stills`` (the
   window's stills compared with the reference, drawn from the seed, and
   the run's last still besides).
 
 Still ``k`` counts from the first set-up still, so a run's stills, their
-cameras and seeds are a function of ``--seed`` alone.
+cameras and seeds are a function of ``--seed`` alone. Every still is
+checked against ``reference/still.py``'s frame of its camera and seed,
+rendered by the scene that ``reference_scene`` chooses (plain, or with
+AA the AA reference; the flare as the configuration states it).
 """
 
 from __future__ import annotations
@@ -77,7 +86,8 @@ def _still(run: Run, k: int) -> dict:
 
     pos, disk_seed = still_plan(run.scene, run.traffic, run.seed, k)
     path = os.path.join(run.state["dir"], f"still_{k:06d}.png")
-    cfg = SceneConfig(**dict(run.scene, pov=pos, seed=disk_seed, output=path))
+    cfg = SceneConfig(**dict(run.scene, pov=pos, seed=disk_seed, output=path,
+                             tile_shards=tile_shards(run.traffic)))
     t0 = now()
     img = modes.render_image(cfg)
     t1 = now()
@@ -96,7 +106,15 @@ def _stills(run: Run, n: int) -> List[dict]:
     return out
 
 
+def tile_shards(traffic: Dict) -> int:
+    """The traffic's ``tile_shards`` (0, the whole frame, by default)."""
+    return int(traffic.get("tile_shards", 0))
+
+
 def setup(run: Run) -> None:
+    if tile_shards(run.traffic) > run.chips:
+        raise ValueError(f"tile_shards {tile_shards(run.traffic)} is more "
+                         f"than the cell's {run.chips} chips")
     run.state["dir"] = tempfile.mkdtemp(dir=run.tmpdir, prefix="stills_")
     run.state["next"] = 0
     warm = _stills(run, int(run.traffic["warm_stills"]))
@@ -157,23 +175,28 @@ def _layer_timers(run: Run, layers: Dict[str, List[float]]):
             setattr(owner, attr, fn)
 
 
-def expected_layers(scene: Dict) -> Tuple[str, ...]:
-    """The timed calls that every still of ``scene`` makes once: the
-    render, and the static texture's generation (every still misses the
-    cache, which ``_still`` empties) or the lifecycle's t=0 tick."""
+def expected_layers(scene: Dict, traffic: Dict) -> Tuple[str, ...]:
+    """The timed calls that every still of ``scene`` under ``traffic``
+    makes once: the render, and the static texture's generation (every
+    still misses the cache, which ``_still`` empties) or the lifecycle's
+    t=0 tick. A still in row bands (``tile_shards`` above 1) never calls
+    ``Renderer.render`` (``render_image_tiled`` traces and shades band by
+    band), so it has no ``render`` and its run no ``still.render_ms``."""
+    layers = () if tile_shards(traffic) > 1 else ("render",)
     if scene.get("disk_texture") == "auto":
-        return ("render", "generate")
+        return layers + ("generate",)
     if scene.get("disk_texture") is None and scene["disk_model"] == "texture":
-        return ("render", "lifecycle")
-    return ("render",)
+        return layers + ("lifecycle",)
+    return layers
 
 
 def traced(run: Run) -> None:
     """Profile ``traced_stills`` more stills, then time the layers of as
     many again (the profiler's ranges and the timers' waits kept apart).
-    A timer that did not see one call of its layer a still (the program
-    calls it by another path) fails the run rather than leave its metric
-    out."""
+    A timer that did not see one call a still of a layer that
+    ``expected_layers`` names (the program calls it by another path)
+    fails the run rather than leave its metric out; a still in row bands
+    names no ``render``, so ``still.render_ms`` is absent from its line."""
     n = int(run.traffic["traced_stills"])
     profiled, prof = devtrace.profile(lambda: _stills(run, n), run.tmpdir)
     prof["frames"] = n
@@ -185,7 +208,7 @@ def traced(run: Run) -> None:
     run.rec["traced_stills"] = profiled + timed
     say("layers (ms): " + ", ".join(
         f"{k} {[round(v, 3) for v in vs]}" for k, vs in layers.items()))
-    missed = {k: len(layers[k]) for k in expected_layers(run.scene)
+    missed = {k: len(layers[k]) for k in expected_layers(run.scene, run.traffic)
               if len(layers[k]) != n}
     if missed:
         raise RuntimeError(f"the layer timers saw {missed} calls in {n} stills")
@@ -216,9 +239,8 @@ def sample_stills(n: int, k: int, seed: int) -> List[int]:
 def check(run: Run) -> dict:
     """Every still's PNG on disk and not empty; a sample of the window's
     stills drawn from the seed, and the run's last still, decoded and
-    compared with the reference's frames."""
-    from ..reference.frame import Scene
-    from ..reference.still import frames_of
+    compared with the reference's frames (``reference_scene``'s)."""
+    from ..reference.still import frames_of, reference_scene
 
     window_stills = run.rec["stills"]
     every = window_stills + run.rec.get("traced_stills", [])
@@ -232,9 +254,15 @@ def check(run: Run) -> dict:
     t0 = now()
     plan = {s["k"]: still_plan(run.scene, run.traffic, run.seed, s["k"])
             for s in picked}
-    ref = frames_of(Scene(run.scene, run.devices()[0]), plan)
+    if run.device == "cuda":
+        import torch
+
+        torch.cuda.reset_peak_memory_stats(run.devices()[0])
+    ref = frames_of(reference_scene(run.scene, run.devices()[0]), plan)
     ref = {k: v.cpu().numpy() for k, v in ref.items()}
-    say(f"reference: {len(ref)} stills {sorted(ref)} in {now() - t0:.3f} s")
+    peak = (f", peak {torch.cuda.max_memory_allocated(run.devices()[0])} bytes"
+            if run.device == "cuda" else "")
+    say(f"reference: {len(ref)} stills {sorted(ref)} in {now() - t0:.3f} s{peak}")
     pairs = []
     for s in picked:
         path = s["path"]

@@ -14,7 +14,12 @@ A driver module has ``setup(run)``, ``window(run, seconds)``,
 ``modes.render_video``, ``InteractiveSession``, ``modes.render_image``
 and ``utils.io.save_image`` (the still driver, which also times three of
 the port's calls in its traced run and empties the static texture's
-cache, ``utils.cache.DEFAULT_CACHE_DIR``, after each still).
+cache, ``utils.cache.DEFAULT_CACHE_DIR``, after each still). The still
+driver hands ``render_image`` the traffic's ``tile_shards`` (row bands
+over the cell's cards) with the scene, and checks every still against
+the reference scene that ``reference/still.reference_scene`` chooses:
+with AA the AA reference (``reference/frame_aa.py``), else the plain
+one, the flare as the configuration states it.
 """
 
 from __future__ import annotations

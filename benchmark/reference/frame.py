@@ -4,11 +4,12 @@ It works every frame out again from the scene's settings and the seed
 alone: the skybox, the lifecycle's entities (replayed tick by tick), the
 per-frame disk texture (background noise, entities, stats, compose), the
 plain ray march, the deferred shade (or the V2 volume shade, in its
-masked full-frame form), bloom and the uint8 quantise. It runs the
-frozen copy of the port's plain modules (``frozen/``) and nothing of the
-port. ``lowp=True`` is the control: every stage's floating-point output
-(skybox, texture, trace, shade, post) is rounded to bfloat16, the
-precision below the float32 that the configurations state.
+masked full-frame form), bloom, the lens flare where a still states it,
+and the uint8 quantise. It runs the frozen copy of the port's plain
+modules (``frozen/``) and nothing of the port. ``lowp=True`` is the
+control: every stage's floating-point output (skybox, texture, trace,
+shade, post, flare) is rounded to bfloat16, the precision below the
+float32 that the configurations state.
 """
 
 from __future__ import annotations
@@ -45,6 +46,7 @@ from .frozen.ops.geodesic import (
     primary_rays_from_params,
     trace_geodesics,
 )
+from .frozen.ops.lens_flare import apply_lens_flare
 from .frozen.pipeline import _shade_frame_v2_masked, post_process, shade_frame
 from .frozen.utils.io import compute_edge_alpha
 
@@ -130,44 +132,65 @@ class Scene:
         self.az = (dyn.az_freq, dyn.az_shear)
         return dyn
 
+    def texture(self, packs, t: float) -> torch.Tensor:
+        """The lifecycle's (n_r, n_phi, 4) disk texture of a frame at
+        ``t`` from the frame's (filament, hotspot, rt_spike) ``packs``,
+        with the frame's own stats."""
+        fil, hs, rt = (torch.as_tensor(a, dtype=torch.float32, device=self.device)
+                       for a in packs)
+        tex, _, _ = frame_texture(
+            fil, hs, rt, self.omega_rows, self.edge, t,
+            n_r=self.n_r, n_phi=self.n_phi, az_freq=self.az[0],
+            az_shear=self.az[1], r_inner=self.r_inner, r_outer=self.r_outer,
+            generation_scale=self.generation_scale,
+            color_temp=DISK_COLOR_TEMPERATURE)
+        return tex
+
     def trace(self, cam_params: np.ndarray, r_escape: float) -> TraceResult:
         return trace_frame(self.s, cam_params, r_escape, self.device)
 
-    def frame(self, cam_params: np.ndarray, t: float, packs, r_escape: float,
-              bloom: bool = True) -> torch.Tensor:
-        """One (H, W, 3) uint8 frame. ``t`` is the frame's time as the
-        float32 the program hands its device; ``packs`` the (filament,
-        hotspot, rt_spike) rows of the frame (None for V2)."""
-        lp = self.lowp
-        dev = self.device
-        mips = None
-        if not self.is_v2:
-            fil, hs, rt = (torch.as_tensor(a, dtype=torch.float32, device=dev)
-                           for a in packs)
-            tex, _, _ = frame_texture(
-                fil, hs, rt, self.omega_rows, self.edge, t,
-                n_r=self.n_r, n_phi=self.n_phi, az_freq=self.az[0],
-                az_shear=self.az[1], r_inner=self.r_inner, r_outer=self.r_outer,
-                generation_scale=self.generation_scale,
-                color_temp=DISK_COLOR_TEMPERATURE)
-            mips = _lowp(tex, lp)[None]
-        tr = self.trace(cam_params, r_escape)
-        if lp:
-            tr = tr._replace(escape_dir=_lowp(tr.escape_dir, True),
-                             hits=_lowp(tr.hits, True))
-        cam_pos = torch.tensor(cam_params[0:3], device=dev)
+    def shade(self, tr: TraceResult, tex, cam_pos: torch.Tensor, t: float):
+        """(background, disk) layers, each (N, 3): the deferred shade of
+        the disk texture ``tex``, or for V2 the volume at time ``t``."""
         if self.is_v2:
             bg, disk, _ = _shade_frame_v2_masked(
                 tr, self.skybox, cam_pos, t_offset=t, **self.v2_args)
         else:
             bg, disk, _ = shade_frame(
-                tr, self.skybox, mips, cam_pos, r_inner=self.r_inner,
-                r_outer=self.r_outer, tilt_deg=float(self.s["disk_tilt"]),
-                t_offset=0.0)
+                tr, self.skybox, _lowp(tex, self.lowp)[None], cam_pos,
+                r_inner=self.r_inner, r_outer=self.r_outer,
+                tilt_deg=float(self.s["disk_tilt"]), t_offset=0.0)
+        return bg, disk
+
+    def render(self, tex, cam_params: np.ndarray, r_escape: float,
+               t: float = 0.0, bloom: bool = True,
+               flare: bool = False) -> torch.Tensor:
+        """One (H, W, 3) uint8 frame of the disk texture ``tex`` (None for
+        V2) from ``cam_params``: the trace, the shade, bloom and the
+        clamp, the lens flare where ``flare``, the uint8 quantise."""
+        lp = self.lowp
+        tr = self.trace(cam_params, r_escape)
+        if lp:
+            tr = tr._replace(escape_dir=_lowp(tr.escape_dir, True),
+                             hits=_lowp(tr.hits, True))
+        cam_pos = torch.tensor(cam_params[0:3], device=self.device)
+        bg, disk = self.shade(tr, tex, cam_pos, t)
+        del tr
         shape = (self.height, self.width, 3)
         bg, disk = _lowp(bg, lp).reshape(shape), _lowp(disk, lp).reshape(shape)
         final = _lowp(post_process(bg, disk, bloom), lp)
+        if flare:
+            final = _lowp(apply_lens_flare(final, disk), lp)
         return torch.round(final * 255.0).to(torch.uint8)
+
+    def frame(self, cam_params: np.ndarray, t: float, packs, r_escape: float,
+              bloom: bool = True) -> torch.Tensor:
+        """One (H, W, 3) uint8 frame of a video or a session, without the
+        flare. ``t`` is the frame's time as the float32 the program hands
+        its device; ``packs`` the (filament, hotspot, rt_spike) rows of
+        the frame (None for V2)."""
+        tex = None if self.is_v2 else self.texture(packs, t)
+        return self.render(tex, cam_params, r_escape, t, bloom)
 
 
 def v2_arguments(scene: Dict) -> dict:

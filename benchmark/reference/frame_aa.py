@@ -1,4 +1,5 @@
-"""The plain reference of the anti-aliased, lens-flared orbit video.
+"""The plain reference of the anti-aliased, lens-flared frame, of an orbit
+video or of a still.
 
 A scene with ``anti_alias="lod_radius"`` (and, as the configuration
 states it, ``lens_flare``): :class:`Scene` is ``frame.Scene`` with the
@@ -9,7 +10,8 @@ differentials -> the LOD shade (each hit at the mip level its
 differentials select) -> bloom and the clamp -> the lens flare -> the
 uint8 quantise. ``frame.video_frames`` renders an orbit's frames with it
 as it stands (the lifecycle replay, cameras and escape radius are the
-same).
+same), and ``still.frames_of`` a still's (its t=0 lifecycle or its
+static texture, its camera and escape radius).
 
 ``lowp=True`` is the control: every stage's floating-point output
 (skybox, texture, mips, trace, shade, post, flare) is rounded to
@@ -34,21 +36,18 @@ import torch
 
 from . import frame
 from .frame import _lowp
-from .frozen.constants import DISK_COLOR_TEMPERATURE, MAX_DISK_CROSSINGS
+from .frozen.constants import MAX_DISK_CROSSINGS
 from .frozen.lod import (
     MIP_LEVELS,
     build_mipmaps,
     primary_differentials_from_params,
     shade_frame_lod,
 )
-from .frozen.models.dynamic_disk import frame_texture
 from .frozen.ops.geodesic import (
     TraceResult,
     primary_rays_from_params,
     trace_geodesics,
 )
-from .frozen.ops.lens_flare import apply_lens_flare
-from .frozen.pipeline import post_process
 
 
 def trace_frame_aa(scene: Dict, cam_params: np.ndarray, r_escape: float,
@@ -81,33 +80,20 @@ class Scene(frame.Scene):
     def trace(self, cam_params: np.ndarray, r_escape: float) -> TraceResult:
         return trace_frame_aa(self.s, cam_params, r_escape, self.device)
 
-    def frame(self, cam_params: np.ndarray, t: float, packs, r_escape: float,
-              bloom: bool = True) -> torch.Tensor:
-        """One (H, W, 3) uint8 frame, as ``frame.Scene.frame``."""
+    def shade(self, tr: TraceResult, tex, cam_pos: torch.Tensor, t: float):
+        """(background, disk) layers: the texture's mip pyramid, each hit
+        at the level its differentials select."""
         lp = self.lowp
-        dev = self.device
-        fil, hs, rt = (torch.as_tensor(a, dtype=torch.float32, device=dev)
-                       for a in packs)
-        tex, _, _ = frame_texture(
-            fil, hs, rt, self.omega_rows, self.edge, t,
-            n_r=self.n_r, n_phi=self.n_phi, az_freq=self.az[0],
-            az_shear=self.az[1], r_inner=self.r_inner, r_outer=self.r_outer,
-            generation_scale=self.generation_scale,
-            color_temp=DISK_COLOR_TEMPERATURE)
         mips = _lowp(build_mipmaps(_lowp(tex, lp), levels=MIP_LEVELS), lp)
-        tr = self.trace(cam_params, r_escape)
-        if lp:
-            tr = tr._replace(escape_dir=_lowp(tr.escape_dir, True),
-                             hits=_lowp(tr.hits, True))
-        cam_pos = torch.tensor(cam_params[0:3], device=dev)
         bg, disk, _ = shade_frame_lod(
             tr, self.skybox, mips, cam_pos, r_inner=self.r_inner,
             r_outer=self.r_outer, tilt_deg=float(self.s["disk_tilt"]),
             t_offset=0.0, aa_strength=float(self.s["aa_strength"]))
-        del tr
-        shape = (self.height, self.width, 3)
-        bg, disk = _lowp(bg, lp).reshape(shape), _lowp(disk, lp).reshape(shape)
-        final = _lowp(post_process(bg, disk, bloom), lp)
-        if self.s["lens_flare"]:
-            final = _lowp(apply_lens_flare(final, disk), lp)
-        return torch.round(final * 255.0).to(torch.uint8)
+        return bg, disk
+
+    def frame(self, cam_params: np.ndarray, t: float, packs, r_escape: float,
+              bloom: bool = True) -> torch.Tensor:
+        """One (H, W, 3) uint8 frame, as ``frame.Scene.frame``, with the
+        lens flare as the configuration states it."""
+        return self.render(self.texture(packs, t), cam_params, r_escape, t,
+                           bloom, bool(self.s["lens_flare"]))

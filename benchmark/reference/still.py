@@ -8,21 +8,26 @@ from the still's camera with its own escape radius, the shade, bloom and
 the uint8 quantise. A static still (``disk_texture: "auto"``) generates
 the static procedural texture of its seed (``frozen/models/
 static_disk.py``) and renders it the same way. Both take the texture's
-size from the still's camera, as the program does.
+size from the still's camera, as the program does. ``reference_scene``
+chooses how a still is rendered: with ``anti_alias`` the AA reference
+(``frame_aa.Scene``: mips, the ray march with its differentials, the LOD
+shade), else the plain one (``frame.Scene``); the lens flare where the
+configuration states it. A still in row bands (``tile_shards``) is the
+same frame, so it has the same reference.
 
 Like ``frame.py`` it runs the frozen copy of the port's plain modules and
-nothing of the port; ``Scene(..., lowp=True)`` is the control, which also
-rounds the generated texture to bfloat16.
+nothing of the port; ``lowp=True`` is the control, which also rounds the
+generated texture to bfloat16.
 """
 
 from __future__ import annotations
 
 from typing import Dict, Tuple
 
-import numpy as np
 import torch
 
-from .frame import Scene, _lowp, _packs, camera_params
+from . import frame, frame_aa
+from .frame import _packs, camera_params
 from .frozen.config import compute_disk_texture_resolution, escape_radius
 from .frozen.models.dynamic_disk import (
     DynamicDiskSystem,
@@ -30,13 +35,28 @@ from .frozen.models.dynamic_disk import (
 )
 from .frozen.models.lifecycle import radial_omega_rows
 from .frozen.models.static_disk import generate_disk_texture
-from .frozen.pipeline import post_process, shade_frame
 from .frozen.utils.io import compute_edge_alpha
 
 Camera = Tuple[float, float, float]
 
 
-def _fit_texture(scene: Scene, pos: Camera) -> None:
+def reference_scene(scene: Dict, device, lowp: bool = False) -> frame.Scene:
+    """The reference scene of a still of ``scene`` on ``device``: the AA
+    reference where ``anti_alias`` is not ``"disabled"``, else the plain
+    one. A scene the still reference cannot render (the V2 volume disk,
+    a disk texture from a file) raises ``ValueError``."""
+    if scene["disk_model"] != "texture":
+        raise ValueError(f"the still reference renders a texture-model "
+                         f"disk, not disk_model {scene['disk_model']!r}")
+    if scene.get("disk_texture") not in (None, "auto"):
+        raise ValueError("the still reference renders the lifecycle or the "
+                         "static texture, not a disk texture from a file")
+    if scene["anti_alias"] != "disabled":
+        return frame_aa.Scene(scene, device, lowp)
+    return frame.Scene(scene, device, lowp)
+
+
+def _fit_texture(scene: frame.Scene, pos: Camera) -> None:
     """Give ``scene`` the lifecycle texture's size and per-row tables of
     a camera at ``pos`` (the size follows the camera's distance)."""
     n_phi, n_r = compute_disk_texture_resolution(
@@ -53,13 +73,17 @@ def _fit_texture(scene: Scene, pos: Camera) -> None:
                               device=scene.device)
 
 
-def _still_camera(scene: Scene, pos: Camera):
-    """(camera vector, escape radius) of a still from ``pos``."""
+def _still_frame(scene: frame.Scene, tex: torch.Tensor,
+                 pos: Camera) -> torch.Tensor:
+    """One (H, W, 3) uint8 still of the disk texture ``tex`` from
+    ``pos``: its camera, its own escape radius, the flare as the
+    configuration states it."""
     cam = camera_params(pos, float(scene.s["fov"]), scene.width, scene.height)
-    return cam, escape_radius(float(scene.s["r_max"]), pos)
+    return scene.render(tex, cam, escape_radius(float(scene.s["r_max"]), pos),
+                        flare=bool(scene.s["lens_flare"]))
 
 
-def still_frames(scene: Scene, stills: Dict[int, Tuple[Camera, int]]
+def still_frames(scene: frame.Scene, stills: Dict[int, Tuple[Camera, int]]
                  ) -> Dict[int, torch.Tensor]:
     """{still: (H, W, 3) uint8 frame} of lifecycle stills, each given as
     (camera position, disk seed): a fresh lifecycle of that seed at t = 0,
@@ -74,33 +98,11 @@ def still_frames(scene: Scene, stills: Dict[int, Tuple[Camera, int]]
         scene.az = (dyn.az_freq, dyn.az_shear)
         for fac in dyn.factories.values():
             fac.tick(now=0.0, dt=0.0)
-        cam, r_escape = _still_camera(scene, pos)
-        out[k] = scene.frame(cam, 0.0, _packs(dyn, 0.0), r_escape)
+        out[k] = _still_frame(scene, scene.texture(_packs(dyn, 0.0), 0.0), pos)
     return out
 
 
-def texture_frame(scene: Scene, tex: torch.Tensor, cam_params: np.ndarray,
-                  r_escape: float) -> torch.Tensor:
-    """One (H, W, 3) uint8 frame of a fixed (n_r, n_phi, 4) disk texture,
-    as ``Scene.frame`` renders the lifecycle's."""
-    lp = scene.lowp
-    mips = _lowp(tex, lp)[None]
-    tr = scene.trace(cam_params, r_escape)
-    if lp:
-        tr = tr._replace(escape_dir=_lowp(tr.escape_dir, True),
-                         hits=_lowp(tr.hits, True))
-    cam_pos = torch.tensor(cam_params[0:3], device=scene.device)
-    bg, disk, _ = shade_frame(
-        tr, scene.skybox, mips, cam_pos, r_inner=scene.r_inner,
-        r_outer=scene.r_outer, tilt_deg=float(scene.s["disk_tilt"]),
-        t_offset=0.0)
-    shape = (scene.height, scene.width, 3)
-    bg, disk = _lowp(bg, lp).reshape(shape), _lowp(disk, lp).reshape(shape)
-    final = _lowp(post_process(bg, disk, True), lp)
-    return torch.round(final * 255.0).to(torch.uint8)
-
-
-def static_still_frames(scene: Scene, stills: Dict[int, Tuple[Camera, int]]
+def static_still_frames(scene: frame.Scene, stills: Dict[int, Tuple[Camera, int]]
                         ) -> Dict[int, torch.Tensor]:
     """{still: (H, W, 3) uint8 frame} of static-disk stills, each given
     as (camera position, disk seed): the static texture of that seed at
@@ -120,15 +122,14 @@ def static_still_frames(scene: Scene, stills: Dict[int, Tuple[Camera, int]]
                 r_outer=scene.r_outer,
                 generation_scale=int(scene.s["disk_generation_scale"]),
                 device=scene.device)
-            cam, r_escape = _still_camera(scene, pos)
-            out[k] = texture_frame(scene, tex, cam, r_escape)
+            out[k] = _still_frame(scene, tex, pos)
             del tex
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
     return out
 
 
-def frames_of(scene: Scene, stills: Dict[int, Tuple[Camera, int]]
+def frames_of(scene: frame.Scene, stills: Dict[int, Tuple[Camera, int]]
               ) -> Dict[int, torch.Tensor]:
     """The reference frames of ``stills`` ({still: (camera, disk seed)}):
     static stills where the scene asks for the static texture

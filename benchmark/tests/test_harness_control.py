@@ -1,8 +1,9 @@
 """The control of the comparison: the reference in bfloat16 in the
 program's place must come out as not correct, for every cell (each
-driver's frames: video, session, still, and ``calibrate_aa``'s for a
-``video_aa`` cell), here at a tiny size on the CPU (on the card at the
-cells' own size: ``python3 -m benchmark.calibrate``)."""
+driver's frames, ``calibrate.FRAMES``: video, the AA video, session,
+still), here at a tiny size on the CPU (on the card at the cells' own
+size: ``python3 -m benchmark.calibrate``). An anti-aliased still's
+other controls are in ``test_harness_still_tiled.py``."""
 
 from __future__ import annotations
 

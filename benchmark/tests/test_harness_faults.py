@@ -5,7 +5,8 @@ kind the cells can have: an answer altered where it is produced, half
 of a batch left out, a step that returns its state unchanged, the
 frames of every card but the first lost on their way to the host, and
 one card's frames wrong; for a still, its PNG missing, the wrong disk
-seed, and the first still's frame returned for every later one."""
+seed, and the first still's frame returned for every later one (a tiled
+AA + flare still's own faults are in ``test_harness_still_tiled.py``)."""
 
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ import json
 import pytest
 import torch
 
-from benchmark import run
+from benchmark import harness, run
 from conftest import tiny
 
 
@@ -138,7 +139,9 @@ def test_a_step_that_returns_its_state_unchanged(in_workdir, capsys, monkeypatch
     assert line["correct"] is False and line["failed"] > 0
 
 
-STILLS = ("fhd_lifecycle.still", "fhd_static.still")
+# The still cells: those whose traffic's driver is ``still``.
+STILLS = [w["name"] for w in harness.load_benchmark()["workloads"]
+          if harness.load_traffic(w["traffic"])["driver"] == "still"]
 
 
 def _broken_render(monkeypatch, change):

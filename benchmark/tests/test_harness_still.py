@@ -1,22 +1,32 @@
 """The still driver on the CPU at a tiny size (the harness's test path):
-a whole run of each still cell, traced and not; the stills' cameras,
-seeds and sample; the still metrics' readers; and the frozen static
-generator held to the port's. The faults a still can have are in
-``test_harness_faults.py``, the control in ``test_harness_control.py``."""
+a whole run of each still cell (the cells whose traffic's driver is
+``still``), traced and not; the stills' cameras, seeds, sample, timed
+layers and reference frames as they stood before the still route took
+AA, the flare and row bands; the still metrics' readers; and the frozen
+static generator held to the port's. The faults a still can have are in
+``test_harness_faults.py``, the control in ``test_harness_control.py``,
+the route's AA + flare still in row bands in
+``test_harness_still_tiled.py``."""
 
 from __future__ import annotations
 
+import hashlib
 import json
 
 import pytest
 import torch
 
 from benchmark import harness, run
-from benchmark.drivers.still import sample_stills, still_plan
-from conftest import tiny
+from benchmark.drivers.still import expected_layers, sample_stills, still_plan
+from conftest import TINY_SCENE, tiny
 
-CELLS = ("fhd_lifecycle.still", "fhd_static.still")
+SPEC = harness.load_benchmark()
+CELLS = [w["name"] for w in SPEC["workloads"]
+         if harness.load_traffic(w["traffic"])["driver"] == "still"]
 RESULT_KEYS = {"correct", "attempted", "failed", "metrics", "device"}
+# The metric that reads each layer the driver's timers time.
+LAYER_METRICS = {"render": "still.render_ms", "lifecycle": "still.lifecycle_ms",
+                 "generate": "static.generate_ms"}
 
 
 def _line(capsys, workload, trace=0, seed=3_000_000_019):
@@ -42,9 +52,13 @@ def test_a_tiny_run_is_correct_and_complete(in_workdir, capsys, workload, trace)
     assert set(line["metrics"]) == want
     assert all(v["value"] > 0 for v in line["metrics"].values())
     if trace:
-        layer = {"fhd_lifecycle.still": "still.lifecycle_ms",
-                 "fhd_static.still": "static.generate_ms"}[workload]
-        assert layer in line["metrics"]
+        cell = harness.find_cell(spec, workload)
+        layers = expected_layers(harness.load_config(cell["config"])["scene"],
+                                 harness.load_traffic(cell["traffic"]))
+        assert layers
+        for layer in layers:
+            if LAYER_METRICS[layer] in want:
+                assert LAYER_METRICS[layer] in line["metrics"]
         assert "breakdown" in line and {"busy_s", "window_s"} <= set(line["device"])
     assert line["device"]["platform"] == "cpu"
     assert harness.forbidden_modules() == []
@@ -123,6 +137,95 @@ def test_the_still_metrics_read_only_a_still_run():
     assert read == {"still.launches_per_still": 4.0, "device.idle_share.still": 75.0,
                     "still.render_ms": 4.0, "still.write_ms": 4.0,
                     "still.lifecycle_ms": None, "static.generate_ms": 7.0}
+
+
+# -- the two still cells as they stood, and the reference's frames ----------
+
+# Read at the commit before the still route took AA, the flare and row
+# bands, at the tests' tiny size, seed 3000000019, one CPU thread:
+# {cell: (plans of stills 0, 1, 5 and 9, the sample of 4 of 40 stills,
+# the timed layers, the first 16 hex digits of the SHA-256 of each
+# reference frame's bytes, of the control's frame of still 1)}.
+BEFORE = {
+    "fhd_lifecycle.still": (
+        {0: ((6.020797289396148, 0.0, 0.5), 3000000019),
+         1: ((4.257346591481601, 4.2573465914816, 0.5), 3000000019),
+         5: ((-4.2573465914816015, -4.2573465914816, 0.5), 3000000019),
+         9: ((4.257346591481601, 4.2573465914816, 0.5), 3000000019)},
+        [20, 23, 26, 38], ("render", "lifecycle"),
+        {0: "6e8d5003903ffd8d", 1: "e9b3b8a1ee5c794a", 5: "56494ccd8698290b",
+         9: "e9b3b8a1ee5c794a"}, "7327fcb1ad305500"),
+    "fhd_static.still": (
+        {0: ((6.0, 0.0, 0.5), 3085169222), 1: ((6.0, 0.0, 0.5), 3249636620),
+         5: ((6.0, 0.0, 0.5), 1833463066), 9: ((6.0, 0.0, 0.5), 921007422)},
+        [20, 23, 26, 38], ("render", "generate"),
+        {0: "1bfad33f19d38d66", 1: "7e231da4b566aad7", 5: "96f3e895fbc0a40e",
+         9: "564bc410a1c7ff21"}, "3b18647caaddc95b"),
+}
+# The same of the videos' reference frames 0 and 5 and the control's 3
+# (the plain and the AA reference share their stages with the stills').
+VIDEOS_BEFORE = {
+    "fhd_lifecycle.video": ({0: "6e8d5003903ffd8d", 5: "33bf92ec249a738b"},
+                            "59191c15be5df806"),
+    "fhd_v2.video": ({0: "da126db848798506", 5: "4165107fc7708719"},
+                     "78064bb81bc75c3e"),
+    "uhd_aa_flare.video": ({0: "04a45fc4d8d35e94", 5: "511b63b8bd55e4dc"},
+                           "0ab5223984003785"),
+}
+GOLDEN_SEED = 3_000_000_019
+
+
+def _digests(frames):
+    return {k: hashlib.sha256(v.contiguous().numpy().tobytes()).hexdigest()[:16]
+            for k, v in frames.items()}
+
+
+@pytest.fixture
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _tiny_run(cell):
+    return harness.Run(cell, GOLDEN_SEED, 1.0, False,
+                       overrides={"device": "cpu", "scene": dict(TINY_SCENE)})
+
+
+@pytest.mark.parametrize("cell", sorted(BEFORE))
+def test_the_still_cells_read_as_before(in_workdir, one_thread, cell):
+    from benchmark.reference.still import frames_of, reference_scene
+
+    plans, sample, layers, frames, lowp = BEFORE[cell]
+    r = _tiny_run(cell)
+    try:
+        got = {k: still_plan(r.scene, r.traffic, GOLDEN_SEED, k) for k in plans}
+        assert got == plans
+        assert sample_stills(40, 4, GOLDEN_SEED) == sample
+        assert expected_layers(r.scene, r.traffic) == layers
+        assert _digests(frames_of(reference_scene(r.scene, "cpu"), got)) == frames
+        ctl = frames_of(reference_scene(r.scene, "cpu", lowp=True), {1: got[1]})
+        assert _digests(ctl) == {1: lowp}
+    finally:
+        r.close()
+
+
+@pytest.mark.parametrize("cell", sorted(VIDEOS_BEFORE))
+def test_the_video_reference_frames_are_as_before(in_workdir, one_thread, cell):
+    from benchmark.reference import frame, frame_aa
+
+    frames, lowp = VIDEOS_BEFORE[cell]
+    r = _tiny_run(cell)
+    try:
+        make = frame_aa.Scene if r.traffic["driver"] == "video_aa" else frame.Scene
+        n = int(r.scene["n_frames"])
+        got = frame.video_frames(make(r.scene, "cpu"), n, [0, 5])
+        assert _digests(got) == frames
+        ctl = frame.video_frames(make(r.scene, "cpu", lowp=True), n, [3])
+        assert _digests(ctl) == {3: lowp}
+    finally:
+        r.close()
 
 
 # -- the frozen static generator against the port's ------------------------
